@@ -1,0 +1,476 @@
+"""Smoke run of the PyTorch port (sdmatte_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py            # from the root of a checkout; one CUDA card
+    python3 chip_smoke.py --profile  # also: device time by kernel for one matte
+
+Phases, in order; any failure exits non-zero before the result lines:
+  1. the card's name and power limit, torch and CUDA versions; TF32 off
+  2. build the hand kernels from csrc/ (one nvcc per source, in parallel)
+  3. hold each kernel against its plain version at every main-path shape
+     class, at one ragged shape, and in fp32
+  4. time each kernel, its plain version and the one PyTorch call that
+     computes the same function (a yardstick the port never calls), beside
+     the least time the card could take (bytes at 3.35 TB/s or bf16 flops at
+     989 TFLOP/s, whichever is larger)
+  5. the default matte end to end at full width (SDMatteConfig(): U-Net
+     320/640/1280/1280, VAE 128/256/512/512) with seeded random weights,
+     bf16, 1024 px: launch counts against the counts the code predicts, warm
+     time per matte, and the model's alpha (before mask_refine) against the
+     same call on the plain versions (MAE <= 1e-2)
+With --profile, one more warm matte runs under torch.profiler and the
+device time per kernel name, the device's busy share and the top kernels are
+printed.  The last two lines are the per-kernel JSON record and the device
+record.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12           # dense bf16 tensor cores
+
+# Main-path launches per 1024 px matte, read from the code:
+#   K1: 16 U-Net transformers (down 2+2+2, mid 1, up 3+3+3), one biased
+#       self-attention and one cross-attention onto the 16,384 aux tokens each
+#   K2: the VAE mid-block attention, encoder (batch 2) and decoder (batch 1)
+#   K3: the encoder's dispatch-table convs at concat batch 2: 1024^2 128->128
+#       x4 (gn), 512^2 128->256 x1 (bare), 512^2 256->256 x3 (gn, residual on
+#       the two conv2s), 256^2 512->512 x3 (gn, residual on the two conv2s)
+ATTN_SHAPES = {   # kernel -> [(label, (B, H, Lq, Lk, D), biased, launches)]
+    "flash_attention_k1": [
+        ("self 128^2", (1, 5, 16384, 16384, 64), True, 5),
+        ("self 64^2", (1, 10, 4096, 4096, 64), True, 5),
+        ("self 32^2", (1, 20, 1024, 1024, 64), True, 5),
+        ("self 16^2", (1, 20, 256, 256, 64), True, 1),
+        ("cross 128^2", (1, 5, 16384, 16384, 64), False, 5),
+        ("cross 64^2", (1, 10, 4096, 16384, 64), False, 5),
+        ("cross 32^2", (1, 20, 1024, 16384, 64), False, 5),
+        ("cross 16^2", (1, 20, 256, 16384, 64), False, 1),
+    ],
+    "flash_attention_k2": [
+        ("vae encoder mid", (2, 1, 16384, 16384, 512), False, 1),
+        ("vae decoder mid", (1, 1, 16384, 16384, 512), False, 1),
+    ],
+}
+CONV_SHAPES = [   # (label, (B, H, W, Cin, Cout), gn, residual, launches)
+    ("1024^2 128->128 gn", (2, 1024, 1024, 128, 128), True, False, 4),
+    ("512^2 128->256", (2, 512, 512, 128, 256), False, False, 1),
+    ("512^2 256->256 gn", (2, 512, 512, 256, 256), True, False, 1),
+    ("512^2 256->256 gn+res", (2, 512, 512, 256, 256), True, True, 2),
+    ("256^2 512->512 gn", (2, 256, 256, 512, 512), True, False, 1),
+    ("256^2 512->512 gn+res", (2, 256, 256, 512, 512), True, True, 2),
+]
+# tolerances: the JAX package's own bars (tests/test_flash_attention.py:43,97,
+# tests/test_conv3x3.py:64), as allclose(atol, rtol), except bf16 attention.
+# The JAX file set its bf16 bar, allclose(2e-2, 2e-2), at Lk=256, where the
+# outputs reach ~0.6; at Lk=16384 they have std ~0.013, below its atol, and a
+# kernel that dropped a KV tile would pass.  bf16 attention is therefore held
+# to the bar's 2e-2 relative to the output's scale:
+# max|got - ref| <= 2e-2 * max|ref|.  The bf16 conv outputs are O(1), where
+# the JAX bar means what it says.
+TOL = {"attn_bf16": 2e-2, "attn_fp32": (2e-5, 2e-5),
+       "conv_bf16": (2e-2, 2e-2), "conv_fp32": (3e-5, 1e-4)}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def median_ms(torch, fn, reps=5, warm=2):
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(flops, nbytes, flops_rate=BF16_FLOPS):
+    t_ops, t_bytes = flops / flops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def allclose_err(torch, got, ref, tol):
+    """(max |got - ref|, passed) for |got - ref| <= atol + rtol * |ref|, or,
+    where tol is a number, for max |got - ref| <= tol * max |ref|."""
+    diff = (got.float() - ref.float()).abs()
+    if isinstance(tol, float):
+        return float(diff.max()), bool(diff.max() <= tol * ref.float().abs().max())
+    atol, rtol = tol
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return float(diff.max()), ok
+
+
+class Smoke:
+    def __init__(self, torch):
+        self.torch = torch
+        self.dev = torch.device("cuda")
+        self.gen = torch.Generator(device=self.dev).manual_seed(0)
+        self.err = {}      # kernel -> max abs err over its checks
+
+    def randn(self, *shape, dtype=None, scale=1.0):
+        t = self.torch.randn(*shape, generator=self.gen, device=self.dev) * scale
+        return t if dtype is None else t.to(dtype)
+
+    def rand(self, *shape, lo=0.0, hi=1.0):
+        return self.torch.rand(*shape, generator=self.gen, device=self.dev) * (hi - lo) + lo
+
+    def check(self, name, label, got, ref, tol_key):
+        tol = TOL[tol_key]
+        err, ok = allclose_err(self.torch, got, ref, tol)
+        self.err[name] = max(self.err.get(name, 0.0), err)
+        bar = (f"max err <= {tol:g} * max|ref|" if isinstance(tol, float)
+               else f"allclose atol {tol[0]:g} rtol {tol[1]:g}")
+        log(f"  check {name:20s} {label:34s} max_abs_err {err:.3e} "
+            f"(max|ref| {float(ref.float().abs().max()):.3g}; {bar}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {label}: kernel disagrees with its plain version")
+
+    # -- attention -------------------------------------------------------
+    def attn_inputs(self, shape, biased, dtype):
+        b, h, lq, lk, d = shape
+        q, k, v = (self.randn(b, h, n, d, dtype=dtype) for n in (lq, lk, lk))
+        bias = None
+        if biased:
+            bias = (self.rand(b, lk) < 0.5).float() * -10000.0
+        return q, k, v, bias, d ** -0.5
+
+    def check_attention(self):
+        from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+        torch = self.torch
+        cases = [(name, label, shape, biased, torch.bfloat16, "attn_bf16")
+                 for name, rows in ATTN_SHAPES.items()
+                 for label, shape, biased, _ in rows]
+        cases += [
+            ("flash_attention_k1", "ragged 80^2 (640 px)", (1, 5, 6400, 6400, 64), True,
+             torch.bfloat16, "attn_bf16"),
+            ("flash_attention_k1", "fp32 self 32^2", (1, 20, 1024, 1024, 64), True,
+             torch.float32, "attn_fp32"),
+            ("flash_attention_k1", "fp32 ragged 100x200", (1, 2, 100, 200, 64), True,
+             torch.float32, "attn_fp32"),
+            ("flash_attention_k2", "ragged 80^2 (640 px)", (2, 1, 6400, 6400, 512), False,
+             torch.bfloat16, "attn_bf16"),
+            ("flash_attention_k2", "fp32 1024 tokens", (2, 1, 1024, 1024, 512), False,
+             torch.float32, "attn_fp32"),
+            ("flash_attention_k2", "fp32 ragged 300x170 biased", (1, 1, 300, 170, 512), True,
+             torch.float32, "attn_fp32"),
+        ]
+        for name, label, shape, biased, dtype, tol in cases:
+            q, k, v, bias, scale = self.attn_inputs(shape, biased, dtype)
+            got = flash_attention(q, k, v, scale=scale, bias=bias)
+            torch.cuda.synchronize()
+            ref = attention_plain(q, k, v, scale=scale, bias=bias)
+            self.check(name, f"{label} {tuple(shape)}", got, ref, tol)
+            del q, k, v, got, ref
+
+    # -- conv ------------------------------------------------------------
+    def conv_inputs(self, shape, gn, res, dtype):
+        torch = self.torch
+        b, h, w, cin, cout = shape
+        cl = torch.channels_last
+        x = self.randn(b, cin, h, w, dtype=dtype).contiguous(memory_format=cl)
+        wt = self.randn(cout, cin, 3, 3, dtype=dtype, scale=(9 * cin) ** -0.5)
+        bias = self.randn(cout, scale=0.1)
+        affine = (self.rand(b, cin, lo=0.5, hi=1.5), self.rand(b, cin, lo=0.5, hi=1.5)) if gn else None
+        r = self.randn(b, cout, h, w, dtype=dtype).contiguous(memory_format=cl) if res else None
+        return x, wt, bias, affine, r
+
+    def check_conv(self):
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+        torch = self.torch
+        cases = [(label, shape, gn, res, torch.bfloat16, "conv_bf16")
+                 for label, shape, gn, res, _ in CONV_SHAPES]
+        cases += [
+            ("ragged 100x75 gn+res", (1, 100, 75, 128, 128), True, True, torch.bfloat16, "conv_bf16"),
+            ("fp32 ragged 100x75 gn+res", (1, 100, 75, 128, 128), True, True,
+             torch.float32, "conv_fp32"),
+            ("fp32 128^2 256->256 gn", (2, 128, 128, 256, 256), True, False,
+             torch.float32, "conv_fp32"),
+        ]
+        for label, shape, gn, res, dtype, tol in cases:
+            x, wt, bias, affine, r = self.conv_inputs(shape, gn, res, dtype)
+            got = conv3x3(x, wt, bias, affine=affine, residual=r)
+            torch.cuda.synchronize()
+            ref = conv3x3_plain(x, wt, bias, affine=affine, residual=r)
+            self.check("conv3x3", f"{label} {tuple(shape)}", got, ref, tol)
+            del x, got, ref
+
+    # -- timing ----------------------------------------------------------
+    def time_kernels(self):
+        import torch.nn.functional as tF
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+        from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+        torch = self.torch
+        rows = []
+        for name, shapes in ATTN_SHAPES.items():
+            for label, shape, biased, launches in shapes:
+                b, h, lq, lk, d = shape
+                q, k, v, bias, scale = self.attn_inputs(shape, biased, torch.bfloat16)
+                mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+                t = {
+                    "ms": median_ms(torch, lambda: flash_attention(q, k, v, scale=scale, bias=bias)),
+                    "plain_ms": median_ms(torch, lambda: attention_plain(q, k, v, scale=scale, bias=bias),
+                                          reps=3, warm=1),
+                    "library_ms": median_ms(torch, lambda: tF.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, scale=scale)),
+                }
+                flops = 4 * b * h * lq * lk * d
+                nbytes = 2 * b * h * (2 * lq + 2 * lk) * d + (4 * b * lk if biased else 0)
+                t["flops"], t["bytes"] = flops, nbytes
+                t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+                rows.append((name, label, shape, launches, t))
+                del q, k, v
+        for label, shape, gn, res, launches in CONV_SHAPES:
+            b, h, w, cin, cout = shape
+            x, wt, bias, affine, r = self.conv_inputs(shape, gn, res, torch.bfloat16)
+            xa = x
+            if affine is not None:
+                a, d = affine
+                xa = tF.silu(x.float() * a[:, :, None, None] + d[:, :, None, None]).to(
+                    x.dtype).contiguous(memory_format=torch.channels_last)
+            wcl = wt.contiguous(memory_format=torch.channels_last)
+            bb = bias.to(torch.bfloat16)
+            t = {
+                "ms": median_ms(torch, lambda: conv3x3(x, wt, bias, affine=affine, residual=r)),
+                "plain_ms": median_ms(torch, lambda: conv3x3_plain(x, wt, bias, affine=affine, residual=r),
+                                      reps=3, warm=1),
+                # cuDNN's bf16 conv on the already-activated input: the conv
+                # part of the function (prologue and residual not included)
+                "library_ms": median_ms(torch, lambda: tF.conv2d(xa, wcl, bb, padding=1)),
+            }
+            flops = 2 * b * h * w * cout * 9 * cin
+            nbytes = 2 * (b * h * w * (cin + cout * (2 if res else 1)) + 9 * cin * cout) \
+                + 4 * cout + (8 * b * cin if gn else 0)
+            t["flops"], t["bytes"] = flops, nbytes
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+            rows.append(("conv3x3", label, shape, launches, t))
+            del x, xa, r
+        for name, label, shape, launches, t in rows:
+            log(f"  time {name:20s} {label:24s} {str(shape):32s} x{launches}  "
+                f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
+                f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
+                f"({t['bound_by']})")
+        return rows
+
+    # -- end to end --------------------------------------------------------
+    def matte(self, predicted):
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        from sdmatte_tpu_torch.ops._build import Kernel
+        from sdmatte_tpu_torch.pipeline import MattingPipeline, PipelineOptions
+
+        t0 = time.perf_counter()
+        with torch.device("meta"):
+            model = SDMatte(SDMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        pipe = MattingPipeline(model, policy=BF16, device=self.dev)
+        torch.cuda.synchronize()
+        log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+            f"seeded random weights, bf16, ready in {time.perf_counter() - t0:.1f} s")
+
+        # synthetic 1024x1024 photo and trimap, made from a seed
+        rng = np.random.default_rng(0)
+        yy, xx = np.mgrid[0:1024, 0:1024] / 1024.0
+        r = np.sqrt((yy - 0.5) ** 2 + (xx - 0.45) ** 2)
+        img = np.stack([0.2 + 0.6 * (r < 0.3), 0.3 + 0.4 * yy, 0.5 + 0.3 * xx], -1)
+        img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
+        tri = np.where(r < 0.25, 1.0, np.where(r < 0.35, 0.5, 0.0)).astype(np.float32)
+        opts = PipelineOptions()   # the default call: 1024 px, alpha_only, refine, 0.8
+
+        pipe(img, tri, options=opts)          # warm: allocator, cuDNN plans
+        torch.cuda.synchronize()
+        kernels = Kernel.registry
+        for k in kernels:
+            k.launches = 0
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        alpha, matted = pipe(img, tri, options=opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in kernels}
+        log(f"  launches per matte: {launches}  predicted: {predicted}")
+        if launches != predicted:
+            raise AssertionError("the main path's launch counts differ from the prediction")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pipe(img, tri, options=opts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        a = alpha.float()
+        log(f"  alpha {tuple(a.shape)} range [{a.min().item():.4f}, {a.max().item():.4f}] "
+            f"finite {bool(torch.isfinite(a).all())}  mean {a.mean().item():.4f}")
+        if a.shape != (1, 1024, 1024) or not bool(torch.isfinite(a).all()) \
+                or a.min() < 0 or a.max() > 1:
+            raise AssertionError("alpha is not a finite (1, 1024, 1024) map in [0, 1]")
+        log(f"  warm seconds per matte (host clock, synchronized): "
+            f"{[round(t, 4) for t in times]}  median {statistics.median(times):.4f}  "
+            f"peak memory {peak:.2f} GiB")
+
+        # The bar holds the model's alpha before mask_refine: refine forces the
+        # trimap's background (62% of these pixels) to 0 on both paths, which
+        # would dilute the MAE over the pixels the model decides.
+        raw_opts = dataclasses.replace(opts, mask_refine=False)
+        alpha_raw, _ = pipe(img, tri, options=raw_opts)
+        plain = MattingPipeline(model, policy=BF16, device=self.dev, impl="plain")
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        alpha_plain, _ = plain(img, tri, options=opts)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        alpha_plain_raw, _ = plain(img, tri, options=raw_opts)
+        if any(k.launches for k in kernels):
+            raise AssertionError("the plain run launched a hand kernel")
+        mae_raw = float((alpha_raw.float() - alpha_plain_raw.float()).abs().mean())
+        mae = float((alpha.float() - alpha_plain.float()).abs().mean())
+        log(f"  plain versions end to end: {t_plain:.4f} s (first call); alpha MAE vs "
+            f"kernels before mask_refine {mae_raw:.3e} (bar 1e-2), after it {mae:.3e}")
+        if not mae_raw <= 1e-2:
+            raise AssertionError(f"alpha MAE {mae_raw} between kernels and plain versions "
+                                 f"(before mask_refine) > 1e-2")
+        self.pipe, self.inputs = pipe, (img, tri, opts)
+        return launches, statistics.median(times)
+
+    def profile(self):
+        """Device time of one warm matte by kernel (torch.profiler)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        img, tri, opts = self.inputs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            self.pipe(img, tri, options=opts)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
+                       for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                      reverse=True)
+        busy = sum(r[0] for r in rows)
+        groups = {}
+        for ms, n, key in rows:
+            k = key.lower()
+            group = ("hand kernels" if "flash_fwd" in k or "conv3x3_kernel" in k
+                     else "cuDNN conv" if "fprop" in k or "conv" in k
+                     else "GEMM" if "gemm" in k or "cutlass" in k
+                     else "reductions" if "reduce" in k
+                     else "copies and casts" if "copy" in k or "memcpy" in k
+                     else "other elementwise and misc")
+            g = groups.setdefault(group, [0.0, 0])
+            g[0] += ms
+            g[1] += n
+        log(f"  profiled matte: wall {wall_ms:.2f} ms (profiler on), device busy "
+            f"{busy:.2f} ms, idle share {100 * (1 - busy / wall_ms):.1f}%")
+        for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+            log(f"    {group:28s} {ms:9.3f} ms  {n:5d} launches")
+        for ms, n, key in rows[:25]:
+            log(f"    {ms:9.3f} ms  x{n:<5d} {key[:110]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card; this script runs only on the card", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "sdmatte_tpu_torch", "csrc")):
+        print("chip_smoke: run it from a checkout of the repo (sdmatte_tpu_torch/ "
+              "is missing beside it)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    t_start = time.perf_counter()
+
+    log("== 1. device")
+    smi = nvidia_smi()
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("TF32 off for cuDNN convs and cuBLAS matmuls: fp32 references run in full fp32")
+
+    log("== 2. build")
+    from sdmatte_tpu_torch.ops import _build
+    from sdmatte_tpu_torch.ops.conv3x3 import K3
+    from sdmatte_tpu_torch.ops.flash_attention import K1, K2
+    t0 = time.perf_counter()
+    report = _build.build()
+    log(f"  built in {time.perf_counter() - t0:.1f} s: "
+        f"{ {k: round(v['seconds'], 1) for k, v in report.items()} }")
+    for name, r in report.items():
+        spills = [ln for ln in r["log"].splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in r["log"].splitlines() if "Used " in ln]
+        log(f"  {name}: registers per instantiation {regs}; spilling lines {len(spills)}")
+
+    smoke = Smoke(torch)
+    log("== 3. kernels against their plain versions")
+    smoke.check_attention()
+    smoke.check_conv()
+
+    log("== 4. timing (CUDA events, warm, median)")
+    rows = smoke.time_kernels()
+
+    log("== 5. end to end: default matte, full width, bf16, 1024 px")
+    predicted = {K1.name: 32, K2.name: 2, K3.name: 11}
+    launches, _ = smoke.matte(predicted)
+    if "--profile" in sys.argv[1:]:
+        log("== 6. profile of one warm matte")
+        smoke.profile()
+
+    record = []
+    for kern in (K1, K2, K3):
+        mine = [(n, t) for name, _, _, n, t in rows if name == kern.name]
+        per_matte = {key: sum(n * t[key] for n, t in mine)
+                     for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
+        bound_ms, bound_by = bound(per_matte["flops"], per_matte["bytes"])
+        record.append({
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": launches[kern.name],
+            "max_abs_err": smoke.err[kern.name],
+            "ms": per_matte["ms"], "plain_ms": per_matte["plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": per_matte["library_ms"],
+        })
+    log(f"(times in the kernels record are per matte: each shape's median times its "
+        f"launches on the main path; total run {time.perf_counter() - t_start:.1f} s)")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": record}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,160 @@
+"""End-to-end matting pipeline of the port (sdmatte_tpu/pipeline/matting.py).
+
+The flow keeps the JAX package's three steps: ``_pre`` (antialiased resize
+to the inference size and normalisation to [-1, 1]), ``_heavy`` (the model:
+VAE encode, U-Net, decode) and ``_post`` (resize back, clamp, trimap
+refinement, composite).  PyTorch runs eagerly, so there is no per-shape
+compile cache; ``warmup`` builds the hand kernels and runs each size once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs import AUX_INPUT_COORDS
+from ..core import imaging
+from ..core.dtypes import FP32, Policy
+from ..models.sdmatte import SDMatte
+from . import postprocess
+
+SPEED_MODES = ("off", "aux_half", "rgb_half", "decode_half", "fast", "fastest")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineOptions:
+    """User-facing knobs (the reference node's INPUT_TYPES)."""
+    inference_size: int = 1024
+    is_transparent: bool = False
+    output_mode: str = "alpha_only"
+    mask_refine: bool = True
+    trimap_constraint: float = 0.8
+    aux_input: str = "trimap"
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; asking for the card without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("MattingPipeline runs on the CUDA card by default, "
+                           "and CUDA is not available; pass device='cpu' to "
+                           "run the plain versions on the CPU")
+    return dev
+
+
+class MattingPipeline:
+    """``model`` is an :class:`SDMatte` with its weights (see
+    checkpoint/convert.load_params and models/init.init_random_); the
+    pipeline moves it to ``device`` in the policy's parameter dtype, in
+    ``torch.channels_last``.
+
+    ``impl``: "auto" runs the hand kernels on the card (the plain versions
+    on the CPU); "plain" runs the plain versions on the card too, for
+    checking the kernels end to end.  Nothing chooses "plain" by itself."""
+
+    def __init__(self, model: SDMatte, *, policy: Policy = FP32, device=None,
+                 impl: str = "auto", vae_chunk: Optional[int] = None,
+                 vae_int8: bool = False, weight_storage: str = "fp",
+                 vae_encode_split: Optional[bool] = None,
+                 speed_mode: str = "off"):
+        if speed_mode not in SPEED_MODES:
+            raise ValueError(f"unknown speed_mode {speed_mode!r}")
+        if weight_storage not in ("fp", "int8"):
+            raise ValueError(f"weight_storage must be 'fp' or 'int8', got "
+                             f"{weight_storage!r}")
+        if impl not in ("auto", "plain"):
+            raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
+        if speed_mode != "off":
+            raise NotImplementedError("the speed modes are not ported yet "
+                                      "(ROADMAP Queue 1 item 5)")
+        if vae_int8 or weight_storage == "int8":
+            raise NotImplementedError("int8 weights and convs are not ported "
+                                      "yet (ROADMAP Queue 1 item 8)")
+        if not all(model.cfg.unet.use_encoder_hidden_states_list):
+            raise NotImplementedError(
+                "text-conditioned gating needs the CLIP text tower, which is "
+                "not ported yet (ROADMAP Queue 1 item 7)")
+        self.device = resolve_device(device)
+        self.cfg = model.cfg
+        self.policy = policy
+        self.impl = impl
+        self.vae_chunk = vae_chunk
+        self.vae_encode_split = vae_encode_split
+        self.model = model.to(device=self.device, dtype=policy.param_dtype,
+                              memory_format=torch.channels_last).eval()
+
+    def _pre(self, image, prompt_mask, *, size: int):
+        """image (B,H,W,3), prompt_mask (B,H,W) in [0,1] -> NCHW (S,S) pair."""
+        cd = self.policy.compute_dtype
+        img = imaging.normalize_pm1(imaging.resize_bilinear(image, size, size)).to(cd)
+        pm = imaging.resize_bilinear(prompt_mask[..., None], size, size)
+        pm = imaging.normalize_pm1(pm).to(cd)
+        return img.permute(0, 3, 1, 2), pm.permute(0, 3, 1, 2)
+
+    def _heavy(self, img, pm, coords, is_trans, *, aux_type: str):
+        """Preprocessed inputs -> model alpha (B,S,S) fp32 in [0,1]."""
+        data = {"image": img, aux_type: pm, AUX_INPUT_COORDS[aux_type]: coords,
+                "is_trans": is_trans}
+        alpha = self.model(data, aux_input_type=aux_type, policy=self.policy,
+                           impl=self.impl, vae_chunk=self.vae_chunk,
+                           vae_encode_split=self.vae_encode_split)
+        return alpha.float()[:, 0]
+
+    def _post(self, alpha_s, image, prompt_mask, *, output_mode: str,
+              refine: bool, trimap_constraint: float):
+        """Model alpha + ORIGINAL-resolution image and mask -> (alpha, matted)."""
+        oh, ow = image.shape[1:3]
+        alpha = imaging.resize_bilinear(alpha_s[..., None], oh, ow)[..., 0].clamp(0.0, 1.0)
+        if refine:
+            alpha = postprocess.mask_refine(alpha, prompt_mask, trimap_constraint)
+        return alpha, postprocess.composite(image, alpha, prompt_mask, output_mode)
+
+    def warmup(self, *, sizes: Sequence[int] = (1024,),
+               batch_sizes: Sequence[int] = (1,),
+               options: Optional[PipelineOptions] = None) -> dict:
+        """Run zero-filled inputs through each (size, batch) once, so the
+        first user request does not pay the kernels' build and the
+        allocator's growth.  Returns {(size, batch): seconds}."""
+        base = options or PipelineOptions()
+        timings = {}
+        for size in sizes:
+            opts = dataclasses.replace(base, inference_size=size)
+            for b in batch_sizes:
+                t0 = time.perf_counter()
+                img = torch.zeros((b, size, size, 3), device=self.device)
+                pm = torch.zeros((b, size, size), device=self.device)
+                self(img, pm, options=opts)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                timings[(size, b)] = round(time.perf_counter() - t0, 3)
+        return timings
+
+    @torch.no_grad()
+    def __call__(self, image, prompt_mask, *, options: PipelineOptions,
+                 coords=None):
+        """image (B,H,W,3) or (H,W,3) in [0,1]; prompt_mask (B,H,W) or (H,W).
+
+        Returns (alpha (B,H,W), matted (B,H,W,3|4)) as fp32 tensors on the
+        pipeline's device."""
+        image = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        if image.ndim == 3:
+            image = image[None]
+        prompt_mask = torch.as_tensor(prompt_mask, dtype=torch.float32, device=self.device)
+        if prompt_mask.ndim == 2:
+            prompt_mask = prompt_mask[None]
+        b = image.shape[0]
+        if coords is None:
+            coords = np.tile(np.asarray([[0.0, 0.0, 1.0, 1.0]], np.float32), (b, 1))
+        coords = torch.as_tensor(coords, dtype=torch.float32).to(self.device)
+        is_trans = torch.full((b,), 1.0 if options.is_transparent else 0.0,
+                              device=self.device)
+        img_s, pm_s = self._pre(image, prompt_mask, size=options.inference_size)
+        alpha_s = self._heavy(img_s, pm_s, coords, is_trans, aux_type=options.aux_input)
+        return self._post(alpha_s, image, prompt_mask,
+                          output_mode=options.output_mode,
+                          refine=options.mask_refine,
+                          trimap_constraint=options.trimap_constraint)

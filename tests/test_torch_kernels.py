@@ -1,0 +1,186 @@
+"""The port's kernel sites: their plain versions against the JAX package's
+Pallas kernels (run in interpret mode on the CPU, as tests/test_flash_attention.py
+and tests/test_conv3x3.py run them), and the CUDA kernels against the plain
+versions on the card.
+
+The CUDA cases carry the ``cuda`` marker and skip without a card; on the card
+run ``python -m pytest tests/test_torch_kernels.py -m cuda``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from sdmatte_tpu.ops.conv3x3 import conv3x3_same
+from sdmatte_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+
+from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+# -------------------------------------------------------------- attention ---
+
+ATTN_CASES = {
+    # (b, h, lq, lk, d), biased, bf16, (atol, rtol) of tests/test_flash_attention.py
+    "multiblock_bias_d64": ((1, 2, 256, 256, 64), True, False, (2e-5, 2e-5)),
+    "ragged_100x200": ((1, 1, 100, 200, 64), True, False, (2e-5, 2e-5)),
+    "wide_head_d512": ((1, 1, 128, 128, 512), False, False, (2e-5, 2e-5)),
+    "bf16_bias": ((1, 2, 128, 256, 64), True, True, (2e-2, 2e-2)),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_plain_attention_matches_pallas_kernel(rng, case):
+    (b, h, lq, lk, d), biased, bf16, (atol, rtol) = ATTN_CASES[case]
+    q, k, v = (rng.standard_normal((b, h, n, d), dtype=np.float32) for n in (lq, lk, lk))
+    bias = (rng.uniform(0, 1, (b, lk)) < 0.5).astype(np.float32) * -10000.0 if biased else None
+    scale = 1.0 / np.sqrt(d)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)), scale=scale,
+                                  bias=None if bias is None else jnp.asarray(bias),
+                                  block_q=128, block_k=128)
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    got = attention_plain(*(_t(x).to(tdt) for x in (q, k, v)), scale=scale,
+                          bias=None if bias is None else _t(bias))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu(rng):
+    q, k, v = (_t(rng.standard_normal((1, 2, 40, 64))) for _ in range(3))
+    bias = _t((rng.uniform(0, 1, (1, 40)) < 0.5) * -10000.0)
+    torch.testing.assert_close(flash_attention(q, k, v, scale=0.125, bias=bias),
+                               attention_plain(q, k, v, scale=0.125, bias=bias),
+                               rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------- conv ---
+
+CONV_CASES = ["bare", "ragged_rows_bias", "gn_prologue_border", "residual"]
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_plain_conv_matches_pallas_kernel(rng, case):
+    """conv3x3_plain (NCHW, OIHW) against conv3x3_same (NHWC, HWIO) in
+    interpret mode, at tests/test_conv3x3.py's shapes and 3e-5."""
+    shape = {"bare": (1, 16, 24, 8), "ragged_rows_bias": (2, 13, 24, 8),
+             "gn_prologue_border": (2, 16, 24, 8), "residual": (1, 16, 16, 8)}[case]
+    b, h, w, c = shape
+    cout = 16 if case == "bare" else 8
+    x = rng.standard_normal(shape).astype(np.float32)
+    wk = (rng.standard_normal((3, 3, c, cout)) * 0.1).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32) if case != "bare" else None
+    affine = res = None
+    if case == "gn_prologue_border":
+        # d != 0: the zero border must stay zero through silu(x * a + d)
+        affine = (rng.uniform(0.5, 2.0, (b, c)).astype(np.float32),
+                  rng.uniform(0.5, 1.5, (b, c)).astype(np.float32))
+    if case == "residual":
+        res = rng.standard_normal((b, h, w, cout)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = conv3x3_same(jnp.asarray(x), jnp.asarray(wk),
+                           None if bias is None else jnp.asarray(bias),
+                           affine=None if affine is None else tuple(map(jnp.asarray, affine)),
+                           residual=None if res is None else jnp.asarray(res), block_rows=8)
+    got = conv3x3_plain(_t(x).permute(0, 3, 1, 2), _t(wk).permute(3, 2, 0, 1),
+                        None if bias is None else _t(bias),
+                        affine=None if affine is None else tuple(map(_t, affine)),
+                        residual=None if res is None else _t(res).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               atol=3e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------------- on the card ---
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the hand kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, ref, atol, rtol):
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def _close_attn(got, ref):
+    """fp32: the JAX package's 2e-5 bar.  bf16: its 2e-2 bar relative to the
+    output's scale, max|got - ref| <= 2e-2 * max|ref|, since at long Lk the
+    outputs are smaller than a fixed atol of 2e-2."""
+    if ref.dtype == torch.float32:
+        return _close(got, ref, 2e-5, 2e-5)
+    err = float((got.float() - ref.float()).abs().max())
+    bar = 2e-2 * float(ref.float().abs().max())
+    assert err <= bar, f"max |got - ref| {err} > {bar} (2e-2 * max|ref|)"
+
+
+@pytest.mark.parametrize("lk,d,biased", [(16384, 64, True), (16384, 512, False)])
+def test_bf16_attention_bar_rejects_a_dropped_kv_tile(lk, d, biased):
+    """At the main path's Lk = 16384 the bf16 bar must reject the output of a
+    kernel that skips one 64-key tile, which a fixed atol of 2e-2 would not."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(1, 1, n, d, generator=g).bfloat16() for n in (128, lk, lk))
+    bias = (torch.rand(1, lk, generator=g) < 0.5).float() * -10000.0 if biased else None
+    ref = attention_plain(q, k, v, scale=d ** -0.5, bias=bias)
+    keep = torch.ones(lk, dtype=torch.bool)
+    keep[4096:4160] = False
+    dropped = attention_plain(q, k[:, :, keep], v[:, :, keep], scale=d ** -0.5,
+                              bias=None if bias is None else bias[:, keep])
+    assert float((dropped.float() - ref.float()).abs().max()) < 2e-2
+    _close_attn(ref, ref)
+    with pytest.raises(AssertionError):
+        _close_attn(dropped, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 2, 256, 256, 64), (1, 5, 1000, 777, 64),
+                                   (2, 3, 130, 4096, 128)])
+def test_k1_matches_plain(cuda, dtype, shape):
+    b, h, lq, lk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(b, h, n, d, generator=g, device=cuda).to(dtype) for n in (lq, lk, lk))
+    bias = (torch.rand(b, lk, generator=g, device=cuda) < 0.5).float() * -10000.0
+    _close_attn(flash_attention(q, k, v, scale=d ** -0.5, bias=bias),
+                attention_plain(q, k, v, scale=d ** -0.5, bias=bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 1024, 512), (1, 1, 300, 170, 512)])
+def test_k2_matches_plain(cuda, dtype, shape):
+    b, h, lq, lk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(b, h, n, d, generator=g, device=cuda).to(dtype) for n in (lq, lk, lk))
+    _close_attn(flash_attention(q, k, v, scale=d ** -0.5), attention_plain(q, k, v, scale=d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,gn,res", [((2, 64, 64, 128, 128), True, False),
+                                          ((1, 50, 37, 128, 320), True, True),
+                                          ((2, 32, 32, 256, 256), False, True)])
+def test_k3_matches_plain(cuda, dtype, shape, gn, res):
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cl = torch.channels_last
+    x = torch.randn(b, cin, h, w, generator=g, device=cuda).to(dtype).contiguous(memory_format=cl)
+    wt = (torch.randn(cout, cin, 3, 3, generator=g, device=cuda) / (9 * cin) ** 0.5).to(dtype)
+    bias = torch.randn(cout, generator=g, device=cuda) * 0.1
+    affine = (torch.rand(b, cin, generator=g, device=cuda) + 0.5,
+              torch.rand(b, cin, generator=g, device=cuda) + 0.5) if gn else None
+    r = torch.randn(b, cout, h, w, generator=g, device=cuda).to(dtype).contiguous(
+        memory_format=cl) if res else None
+    tol = (3e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    _close(conv3x3(x, wt, bias, affine=affine, residual=r),
+           conv3x3_plain(x, wt, bias, affine=affine, residual=r), *tol)
