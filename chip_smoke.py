@@ -7,24 +7,31 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. the card's name and power limit, torch and CUDA versions; TF32 off
   2. build the hand kernels from csrc/ (one nvcc per source, in parallel)
   3. hold each kernel against its plain version at every main-path shape
-     class, at one ragged shape, and in fp32
+     class, at ragged shapes, and in fp32; the channel-split conv wrapper
+     against the direct conv
   4. time each kernel, its plain version and the one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
-     the least time the card could take (bytes at 3.35 TB/s or bf16 flops at
-     989 TFLOP/s, whichever is larger)
-  5. the default matte end to end at full width (SDMatteConfig(): U-Net
+     the least time the card could take (bytes at 3.35 TB/s, or operations
+     at 989 TFLOP/s bf16 or 1,979 TOP/s int8, whichever is larger)
+  5. three mattes end to end at full width (SDMatteConfig(): U-Net
      320/640/1280/1280, VAE 128/256/512/512) with seeded random weights,
-     bf16, 1024 px: launch counts against the counts the code predicts, warm
-     time per matte, and the model's alpha (before mask_refine) against the
-     same call on the plain versions (MAE <= 1e-2)
-With --profile, one more warm matte runs under torch.profiler and the
-device time per kernel name, the device's busy share and the top kernels are
-printed.  The last two lines are the per-kernel JSON record and the device
-record.
+     bf16, 1024 px: the default, vae_int8=True (every 3x3 VAE conv on the
+     int8 kernel K4) and weight_storage="int8".  Each path is built from the
+     fp32 weights; for each, launch counts against the counts the code
+     predicts, warm time per matte, peak memory, and the model's alpha
+     (before mask_refine) against the same call on the plain versions (MAE
+     <= 1e-2); on the vae_int8 path the plain versions run on the kernels'
+     path's int8 activations and each int8 conv's input is held to the
+     kernels' path's (relative MAE <= 2e-2)
+With --profile, one more warm matte of the default and vae_int8 paths runs
+under torch.profiler and the device time per kernel name, the device's busy
+share and the top kernels are printed.  The last two lines are the
+per-kernel JSON record and the device record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -35,6 +42,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor cores
+INT8_OPS = 1979e12            # dense int8 tensor cores
 
 # Main-path launches per 1024 px matte, read from the code:
 #   K1: 16 U-Net transformers (down 2+2+2, mid 1, up 3+3+3), one biased
@@ -67,8 +75,40 @@ CONV_SHAPES = [   # (label, (B, H, W, Cin, Cout), gn, residual, launches)
     ("256^2 512->512 gn", (2, 256, 256, 512, 512), True, False, 1),
     ("256^2 512->512 gn+res", (2, 256, 256, 512, 512), True, True, 2),
 ]
+# K4 under vae_int8: every 3x3 conv of the VAE, read from models/vae.py.
+#   encoder at concat batch 2: conv_in; 2 resnets x 2 convs per stage; a
+#     stride-2 downsampler after each of the first three stages; the
+#     mid-block's 2 resnets; conv_out (25)
+#   decoder at batch 1: conv_in; the mid-block's 2 resnets; 3 resnets x 2
+#     convs per stage; an upsampler conv (nearest x2, then the conv) after
+#     each of the first three stages; conv_out (33)
+INT8_SHAPES = [   # (label, (B, H, W, Cin, Cout), stride, launches)
+    ("enc conv_in", (2, 1024, 1024, 3, 128), 1, 1),
+    ("enc 1024^2 128->128", (2, 1024, 1024, 128, 128), 1, 4),
+    ("enc down 1024^2 128", (2, 1024, 1024, 128, 128), 2, 1),
+    ("enc 512^2 128->256", (2, 512, 512, 128, 256), 1, 1),
+    ("enc 512^2 256->256", (2, 512, 512, 256, 256), 1, 3),
+    ("enc down 512^2 256", (2, 512, 512, 256, 256), 2, 1),
+    ("enc 256^2 256->512", (2, 256, 256, 256, 512), 1, 1),
+    ("enc 256^2 512->512", (2, 256, 256, 512, 512), 1, 3),
+    ("enc down 256^2 512", (2, 256, 256, 512, 512), 2, 1),
+    ("enc 128^2 512->512", (2, 128, 128, 512, 512), 1, 8),
+    ("enc conv_out", (2, 128, 128, 512, 8), 1, 1),
+    ("dec conv_in", (1, 128, 128, 4, 512), 1, 1),
+    ("dec 128^2 512->512", (1, 128, 128, 512, 512), 1, 10),
+    ("dec 256^2 512->512", (1, 256, 256, 512, 512), 1, 7),
+    ("dec 512^2 512->512", (1, 512, 512, 512, 512), 1, 1),
+    ("dec 512^2 512->256", (1, 512, 512, 512, 256), 1, 1),
+    ("dec 512^2 256->256", (1, 512, 512, 256, 256), 1, 5),
+    ("dec 1024^2 256->256", (1, 1024, 1024, 256, 256), 1, 1),
+    ("dec 1024^2 256->128", (1, 1024, 1024, 256, 128), 1, 1),
+    ("dec 1024^2 128->128", (1, 1024, 1024, 128, 128), 1, 5),
+    ("dec conv_out", (1, 1024, 1024, 128, 3), 1, 1),
+]
+DOWN_PAD = ((0, 1), (0, 1))   # diffusers Downsample2D's padding at stride 2
 # tolerances: the JAX package's own bars (tests/test_flash_attention.py:43,97,
-# tests/test_conv3x3.py:64), as allclose(atol, rtol), except bf16 attention.
+# tests/test_conv3x3.py:64,117,135), as allclose(atol, rtol), except bf16
+# attention.
 # The JAX file set its bf16 bar, allclose(2e-2, 2e-2), at Lk=256, where the
 # outputs reach ~0.6; at Lk=16384 they have std ~0.013, below its atol, and a
 # kernel that dropped a KV tile would pass.  bf16 attention is therefore held
@@ -76,7 +116,8 @@ CONV_SHAPES = [   # (label, (B, H, W, Cin, Cout), gn, residual, launches)
 # max|got - ref| <= 2e-2 * max|ref|.  The bf16 conv outputs are O(1), where
 # the JAX bar means what it says.
 TOL = {"attn_bf16": 2e-2, "attn_fp32": (2e-5, 2e-5),
-       "conv_bf16": (2e-2, 2e-2), "conv_fp32": (3e-5, 1e-4)}
+       "conv_bf16": (2e-2, 2e-2), "conv_fp32": (3e-5, 1e-4),
+       "csplit_fp32": (5e-5, 1e-4), "int8_fp32": (1e-3, 1e-6)}
 
 
 def log(*a):
@@ -127,6 +168,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
         self.err = {}      # kernel -> max abs err over its checks
+        self.profile_on = False
 
     def randn(self, *shape, dtype=None, scale=1.0):
         t = self.torch.randn(*shape, generator=self.gen, device=self.dev) * scale
@@ -215,6 +257,63 @@ class Smoke:
             self.check("conv3x3", f"{label} {tuple(shape)}", got, ref, tol)
             del x, got, ref
 
+    def check_csplit(self):
+        """The channel-split wrapper (two half-Cin K3 passes summed) against
+        the direct plain conv, in both fuse_sum modes, GN affine and
+        residual on."""
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3_csplit, conv3x3_plain
+        torch = self.torch
+        cases = [("csplit 512^2 256->256 gn+res", (2, 512, 512, 256, 256), torch.bfloat16,
+                  "conv_bf16"),
+                 ("fp32 csplit ragged 100x75 256->128 gn+res", (1, 100, 75, 256, 128),
+                  torch.float32, "csplit_fp32")]
+        for label, shape, dtype, tol in cases:
+            x, wt, bias, affine, r = self.conv_inputs(shape, True, True, dtype)
+            ref = conv3x3_plain(x, wt, bias, affine=affine, residual=r)
+            for fuse_sum in (True, False):
+                got = conv3x3_csplit(x, wt, bias, affine=affine, residual=r, fuse_sum=fuse_sum)
+                torch.cuda.synchronize()
+                self.check("conv3x3", f"{label} fuse_sum={fuse_sum} {tuple(shape)}", got,
+                           ref, tol)
+            del x, got, ref
+
+    # -- int8 conv ---------------------------------------------------------
+    def int8_inputs(self, shape, stride):
+        torch = self.torch
+        b, h, w, cin, cout = shape
+        cl = torch.channels_last
+        xq = torch.randint(-127, 128, (b, cin, h, w), generator=self.gen, device=self.dev,
+                           dtype=torch.int8).contiguous(memory_format=cl)
+        wq = torch.randint(-127, 128, (cout, cin, 3, 3), generator=self.gen, device=self.dev,
+                           dtype=torch.int8).contiguous(memory_format=cl)
+        # s_x * w_scale of O(1) activations and weights of std (9 Cin)^-0.5
+        scale = self.rand(cout, lo=0.5, hi=1.5) / (127.0 * 127.0 * (9 * cin) ** 0.5)
+        bias = self.randn(cout, scale=0.1)
+        return xq, wq, scale, bias, dict(stride=stride, padding=1 if stride == 1 else DOWN_PAD)
+
+    def check_int8_conv(self):
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3_int8, conv3x3_int8_plain
+        torch = self.torch
+        cases = [(label, shape, stride, torch.bfloat16, "conv_bf16")
+                 for label, shape, stride, _ in INT8_SHAPES]
+        cases += [
+            ("ragged 100x75 128->128", (1, 100, 75, 128, 128), 1, torch.bfloat16, "conv_bf16"),
+            ("fp32 ragged 100x75 128->128", (1, 100, 75, 128, 128), 1, torch.float32,
+             "int8_fp32"),
+            ("fp32 ragged down 100x75 256", (1, 100, 75, 256, 256), 2, torch.float32,
+             "int8_fp32"),
+            ("fp32 conv_in 256^2 3->128", (2, 256, 256, 3, 128), 1, torch.float32, "int8_fp32"),
+            ("fp32 conv_out 256^2 128->3", (1, 256, 256, 128, 3), 1, torch.float32,
+             "int8_fp32"),
+        ]
+        for label, shape, stride, dtype, tol in cases:
+            xq, wq, scale, bias, kw = self.int8_inputs(shape, stride)
+            got = conv3x3_int8(xq, wq, scale, bias, out_dtype=dtype, **kw)
+            torch.cuda.synchronize()
+            ref = conv3x3_int8_plain(xq, wq, scale, bias, out_dtype=dtype, **kw)
+            self.check("conv3x3_int8", f"{label} s{stride} {tuple(shape)}", got, ref, tol)
+            del xq, got, ref
+
     # -- timing ----------------------------------------------------------
     def time_kernels(self):
         import torch.nn.functional as tF
@@ -265,41 +364,100 @@ class Smoke:
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
             rows.append(("conv3x3", label, shape, launches, t))
             del x, xa, r
+        rows += self.time_int8_conv()
         for name, label, shape, launches, t in rows:
+            extra = f"  cudnn_bf16_ms {t['cudnn_bf16_ms']:.4f}" if "cudnn_bf16_ms" in t else ""
             log(f"  time {name:20s} {label:24s} {str(shape):32s} x{launches}  "
                 f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
                 f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
-                f"({t['bound_by']})")
+                f"({t['bound_by']}){extra}")
+        return rows
+
+    def time_int8_conv(self):
+        """K4 per vae_int8 shape.  The yardstick is torch._int_mm on the
+        im2col matrix of the same conv (the int8 GEMM only, K and N padded
+        to its multiple of 8); cuDNN's bf16 conv of the same shape is
+        printed beside it."""
+        import torch.nn.functional as tF
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3_int8, conv3x3_int8_plain
+        torch = self.torch
+        rows = []
+        for label, shape, stride, launches in INT8_SHAPES:
+            b, h, w, cin, cout = shape
+            xq, wq, scale, bias, kw = self.int8_inputs(shape, stride)
+            (pt, pb), (pl, pr) = ((1, 1), (1, 1)) if stride == 1 else DOWN_PAD
+            ho, wo = (h + pt + pb - 3) // stride + 1, (w + pl + pr - 3) // stride + 1
+            t = {
+                "ms": median_ms(torch, lambda: conv3x3_int8(xq, wq, scale, bias, **kw)),
+                "plain_ms": median_ms(torch, lambda: conv3x3_int8_plain(xq, wq, scale, bias, **kw),
+                                      reps=3, warm=1),
+            }
+            xp = tF.pad(xq.permute(0, 2, 3, 1), (0, 0, pl, pr, pt, pb))
+            cols = torch.stack([xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+                                   dx:dx + stride * (wo - 1) + 1:stride]
+                                for dy in range(3) for dx in range(3)], dim=3)
+            k, kp, np_ = 9 * cin, -(-9 * cin // 8) * 8, -(-cout // 8) * 8
+            a = tF.pad(cols.reshape(b * ho * wo, k), (0, kp - k))
+            del cols, xp
+            wmat = tF.pad(wq.permute(0, 2, 3, 1).reshape(cout, k), (0, kp - k, 0, np_ - cout)).t()
+            t["library_ms"] = median_ms(torch, lambda: torch._int_mm(a, wmat))
+            del a
+            xb = tF.pad(torch.randn(b, cin, h, w, generator=self.gen, device=self.dev,
+                                    dtype=torch.bfloat16), (pl, pr, pt, pb))
+            xb = xb.contiguous(memory_format=torch.channels_last)
+            wb = (wq.float() / 127.0).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            t["cudnn_bf16_ms"] = median_ms(torch, lambda: tF.conv2d(xb, wb, stride=stride))
+            del xb
+            flops = 2 * b * ho * wo * cout * 9 * cin
+            nbytes = b * h * w * cin + 9 * cin * cout + 2 * b * ho * wo * cout + 8 * cout
+            t["flops"], t["bytes"] = flops, nbytes
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes, INT8_OPS)
+            rows.append(("conv3x3_int8", label, shape + (stride,), launches, t))
+            del xq
         return rows
 
     # -- end to end --------------------------------------------------------
-    def matte(self, predicted):
+    def inputs(self):
+        """A synthetic 1024x1024 photo and trimap, made from a seed, and the
+        default call's options (1024 px, alpha_only, refine, 0.8)."""
         import numpy as np
-        torch = self.torch
-        from sdmatte_tpu_torch.configs import SDMatteConfig
-        from sdmatte_tpu_torch.core.dtypes import BF16
-        from sdmatte_tpu_torch.models.init import init_random_
-        from sdmatte_tpu_torch.models.sdmatte import SDMatte
-        from sdmatte_tpu_torch.ops._build import Kernel
-        from sdmatte_tpu_torch.pipeline import MattingPipeline, PipelineOptions
-
-        t0 = time.perf_counter()
-        with torch.device("meta"):
-            model = SDMatte(SDMatteConfig())
-        init_random_(model, seed=0, device=self.dev)
-        pipe = MattingPipeline(model, policy=BF16, device=self.dev)
-        torch.cuda.synchronize()
-        log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
-            f"seeded random weights, bf16, ready in {time.perf_counter() - t0:.1f} s")
-
-        # synthetic 1024x1024 photo and trimap, made from a seed
+        from sdmatte_tpu_torch.pipeline import PipelineOptions
         rng = np.random.default_rng(0)
         yy, xx = np.mgrid[0:1024, 0:1024] / 1024.0
         r = np.sqrt((yy - 0.5) ** 2 + (xx - 0.45) ** 2)
         img = np.stack([0.2 + 0.6 * (r < 0.3), 0.3 + 0.4 * yy, 0.5 + 0.3 * xx], -1)
         img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
         tri = np.where(r < 0.25, 1.0, np.where(r < 0.35, 0.5, 0.0)).astype(np.float32)
-        opts = PipelineOptions()   # the default call: 1024 px, alpha_only, refine, 0.8
+        return img, tri, PipelineOptions()
+
+    def pipeline(self, **kw):
+        """A bf16 pipeline on a model with the seeded fp32 weights, made anew,
+        so that no path sees another's cast or quantized weights."""
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        from sdmatte_tpu_torch.pipeline import MattingPipeline
+        with torch.device("meta"):
+            model = SDMatte(SDMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        n = sum(p.numel() for p in model.parameters())
+        return MattingPipeline(model, policy=BF16, device=self.dev, **kw), n
+
+    def matte(self, label, predicted, **kw):
+        """One path end to end: launches of one matte against ``predicted``,
+        the warm median of 3, peak memory, and the alpha before mask_refine
+        against the same path on the plain versions.  Returns (launches,
+        median s, peak GiB, alpha before mask_refine)."""
+        torch = self.torch
+        from sdmatte_tpu_torch.ops._build import Kernel
+        img, tri, opts = self.inputs()
+        t0 = time.perf_counter()
+        pipe, n_params = self.pipeline(**kw)
+        torch.cuda.synchronize()
+        log(f"  [{label}] model: {n_params / 1e6:.1f} M params, seeded random weights, "
+            f"bf16, {kw or 'default options'}, ready in {time.perf_counter() - t0:.1f} s")
 
         pipe(img, tri, options=opts)          # warm: allocator, cuDNN plans
         torch.cuda.synchronize()
@@ -313,9 +471,9 @@ class Smoke:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         launches = {k.name: k.launches for k in kernels}
-        log(f"  launches per matte: {launches}  predicted: {predicted}")
+        log(f"  [{label}] launches per matte: {launches}  predicted: {predicted}")
         if launches != predicted:
-            raise AssertionError("the main path's launch counts differ from the prediction")
+            raise AssertionError(f"{label}: the launch counts differ from the prediction")
         for _ in range(2):
             t0 = time.perf_counter()
             pipe(img, tri, options=opts)
@@ -323,21 +481,27 @@ class Smoke:
             times.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         a = alpha.float()
-        log(f"  alpha {tuple(a.shape)} range [{a.min().item():.4f}, {a.max().item():.4f}] "
-            f"finite {bool(torch.isfinite(a).all())}  mean {a.mean().item():.4f}")
+        log(f"  [{label}] alpha {tuple(a.shape)} range [{a.min().item():.4f}, "
+            f"{a.max().item():.4f}] finite {bool(torch.isfinite(a).all())}  "
+            f"mean {a.mean().item():.4f}")
         if a.shape != (1, 1024, 1024) or not bool(torch.isfinite(a).all()) \
                 or a.min() < 0 or a.max() > 1:
-            raise AssertionError("alpha is not a finite (1, 1024, 1024) map in [0, 1]")
-        log(f"  warm seconds per matte (host clock, synchronized): "
-            f"{[round(t, 4) for t in times]}  median {statistics.median(times):.4f}  "
-            f"peak memory {peak:.2f} GiB")
+            raise AssertionError(f"{label}: alpha is not a finite (1, 1024, 1024) map in [0, 1]")
+        median = statistics.median(times)
+        log(f"  [{label}] warm seconds per matte (host clock, synchronized): "
+            f"{[round(t, 4) for t in times]}  median {median:.4f}  peak memory {peak:.2f} GiB")
+        if self.profile_on:
+            self.profile(pipe, (img, tri, opts))
 
         # The bar holds the model's alpha before mask_refine: refine forces the
         # trimap's background (62% of these pixels) to 0 on both paths, which
         # would dilute the MAE over the pixels the model decides.
         raw_opts = dataclasses.replace(opts, mask_refine=False)
-        alpha_raw, _ = pipe(img, tri, options=raw_opts)
-        plain = MattingPipeline(model, policy=BF16, device=self.dev, impl="plain")
+        shared, n_shared = [], 0
+        with self.int8_activations(shared, replay=False):  # records only on the int8 path
+            alpha_raw, _ = pipe(img, tri, options=raw_opts)
+        del pipe
+        plain, _ = self.pipeline(impl="plain", **kw)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()
@@ -345,27 +509,95 @@ class Smoke:
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
         alpha_plain_raw, _ = plain(img, tri, options=raw_opts)
+        mae_free = float((alpha_raw.float() - alpha_plain_raw.float()).abs().mean())
+        if shared:
+            # Each int8 conv requantizes its input per tensor, so a bf16
+            # rounding difference upstream flips single int8 steps, which the
+            # next convs spread until the two paths differ by about the int8
+            # noise itself: the free-running MAE is printed, not held.  The
+            # bar holds the path segment by segment instead: the plain path
+            # runs on the kernels' path's int8 activations, and each int8
+            # conv's input on it is held to the kernels' path's input at the
+            # kernel checks' bf16 bar relative to scale (mean |diff| / mean
+            # |input| <= 2e-2).  Segments differ only where K1 or K2 run (the
+            # U-Net before the decoder's conv_in is the deepest).  With every
+            # activation shared, the alpha follows from the last conv's.
+            n_shared = len(shared)
+            with self.int8_activations(shared, replay=True) as per_conv:
+                alpha_plain_raw, _ = plain(img, tri, options=raw_opts)
+            if shared or len(per_conv) != n_shared:
+                raise AssertionError(f"{label}: the plain path ran another number of int8 "
+                                     f"convs than the kernels' path ({len(per_conv)} vs "
+                                     f"{n_shared})")
+            worst = max(range(n_shared), key=lambda i: per_conv[i][0])
+            n_flip, n_el = sum(c[1] for c in per_conv), sum(c[2] for c in per_conv)
+            log(f"  [{label}] {n_shared} int8 conv inputs held against the kernels' path's "
+                f"with its int8 activations shared: relative MAE per conv "
+                f"{[float(f'{c[0]:.2e}') for c in per_conv]}, largest {per_conv[worst][0]:.3e} "
+                f"(conv {worst}; bar 2e-2); the plain quantizer departs from the shared "
+                f"activations in {n_flip} of {n_el} elements ({100 * n_flip / n_el:.4f}%, at "
+                f"most {max(c[3] for c in per_conv)} steps), scales by at most "
+                f"{max(c[4] for c in per_conv):.2e}; free-running alpha MAE {mae_free:.3e} "
+                f"(printed only)")
+            if not per_conv[worst][0] <= 2e-2:
+                raise AssertionError(f"{label}: int8 conv {worst}'s input differs from the "
+                                     f"kernels' path by {per_conv[worst][0]} > 2e-2 (relative)")
+        del plain
         if any(k.launches for k in kernels):
-            raise AssertionError("the plain run launched a hand kernel")
+            raise AssertionError(f"{label}: the plain run launched a hand kernel")
         mae_raw = float((alpha_raw.float() - alpha_plain_raw.float()).abs().mean())
         mae = float((alpha.float() - alpha_plain.float()).abs().mean())
-        log(f"  plain versions end to end: {t_plain:.4f} s (first call); alpha MAE vs "
-            f"kernels before mask_refine {mae_raw:.3e} (bar 1e-2), after it {mae:.3e}")
+        log(f"  [{label}] plain versions end to end: {t_plain:.4f} s (first call); alpha "
+            f"MAE vs kernels before mask_refine {mae_raw:.3e} (bar 1e-2"
+            f"{'; int8 activations shared' if n_shared else ''}), after it {mae:.3e}"
+            f"{' (free-running)' if n_shared else ''}")
         if not mae_raw <= 1e-2:
-            raise AssertionError(f"alpha MAE {mae_raw} between kernels and plain versions "
-                                 f"(before mask_refine) > 1e-2")
-        self.pipe, self.inputs = pipe, (img, tri, opts)
-        return launches, statistics.median(times)
+            raise AssertionError(f"{label}: alpha MAE {mae_raw} between kernels and plain "
+                                 f"versions (before mask_refine) > 1e-2")
+        torch.cuda.empty_cache()
+        return launches, median, peak, alpha_raw
 
-    def profile(self):
+    @contextlib.contextmanager
+    def int8_activations(self, shared, *, replay):
+        """Record each int8 conv's input and quantized activation on a path
+        into ``shared``, or (``replay``) hand the recorded activations out
+        again in call order, yielding per conv: mean |input - recorded
+        input| / mean |recorded input|, elements where the path's own
+        quantizer differs, elements, largest difference in steps, and the
+        relative scale difference."""
+        from sdmatte_tpu_torch.ops import quant
+        torch = self.torch
+        own, stats = quant.quantize_act_int8, []
+
+        def record(x):
+            q, s = own(x)
+            shared.append((x, q, s))
+            return q, s
+
+        def replay_fn(x):
+            q, s = own(x)
+            ref_x, ref_q, ref_s = shared.pop(0)
+            rel = float((x.float() - ref_x.float()).abs().mean() / ref_x.float().abs().mean())
+            d = (q.to(torch.int16) - ref_q.to(torch.int16)).abs()
+            stats.append((rel, int((d != 0).sum()), d.numel(), int(d.max()),
+                          float((s - ref_s).abs() / ref_s)))
+            return ref_q, ref_s
+
+        quant.quantize_act_int8 = replay_fn if replay else record
+        try:
+            yield stats
+        finally:
+            quant.quantize_act_int8 = own
+
+    def profile(self, pipe, inputs):
         """Device time of one warm matte by kernel (torch.profiler)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
-        img, tri, opts = self.inputs
+        img, tri, opts = inputs
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            self.pipe(img, tri, options=opts)
+            pipe(img, tri, options=opts)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         rows = sorted(((ev.self_device_time_total / 1e3, ev.count, ev.key)
@@ -377,6 +609,7 @@ class Smoke:
         for ms, n, key in rows:
             k = key.lower()
             group = ("hand kernels" if "flash_fwd" in k or "conv3x3_kernel" in k
+                     or "conv3x3_i8_kernel" in k
                      else "cuDNN conv" if "fprop" in k or "conv" in k
                      else "GEMM" if "gemm" in k or "cutlass" in k
                      else "reductions" if "reduce" in k
@@ -421,7 +654,7 @@ def main() -> int:
 
     log("== 2. build")
     from sdmatte_tpu_torch.ops import _build
-    from sdmatte_tpu_torch.ops.conv3x3 import K3
+    from sdmatte_tpu_torch.ops.conv3x3 import K3, K4
     from sdmatte_tpu_torch.ops.flash_attention import K1, K2
     t0 = time.perf_counter()
     report = _build.build()
@@ -433,36 +666,55 @@ def main() -> int:
         log(f"  {name}: registers per instantiation {regs}; spilling lines {len(spills)}")
 
     smoke = Smoke(torch)
+    smoke.profile_on = "--profile" in sys.argv[1:]
     log("== 3. kernels against their plain versions")
     smoke.check_attention()
     smoke.check_conv()
+    smoke.check_csplit()
+    smoke.check_int8_conv()
 
     log("== 4. timing (CUDA events, warm, median)")
     rows = smoke.time_kernels()
 
-    log("== 5. end to end: default matte, full width, bf16, 1024 px")
-    predicted = {K1.name: 32, K2.name: 2, K3.name: 11}
-    launches, _ = smoke.matte(predicted)
-    if "--profile" in sys.argv[1:]:
-        log("== 6. profile of one warm matte")
-        smoke.profile()
+    log("== 5. end to end: full width, bf16, 1024 px (with --profile, a profile of one "
+        "more warm matte follows the default and vae_int8 paths' timings)")
+    n_int8 = sum(n for *_, n in INT8_SHAPES)
+    paths = {
+        "default": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0}, {}),
+        "vae_int8": ({K1.name: 32, K2.name: 2, K3.name: 0, K4.name: n_int8},
+                     {"vae_int8": True}),
+        "int8 storage": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0},
+                         {"weight_storage": "int8"}),
+    }
+    results = {}
+    for label, (predicted, kw) in paths.items():
+        smoke.profile_on = "--profile" in sys.argv[1:] and label != "int8 storage"
+        results[label] = smoke.matte(label, predicted, **kw)
+    base = results["default"]
+    for label, (_, median, peak, alpha_raw) in results.items():
+        mae = float((alpha_raw.float() - base[3].float()).abs().mean())
+        log(f"  {label:14s} warm median {median:.4f} s (default {base[1]:.4f} s), peak "
+            f"{peak:.2f} GiB (default {base[2]:.2f} GiB); alpha MAE vs the default bf16 "
+            f"matte before mask_refine {mae:.3e} (printed only: random weights)")
 
     record = []
-    for kern in (K1, K2, K3):
+    for kern, path, rate in ((K1, "default", BF16_FLOPS), (K2, "default", BF16_FLOPS),
+                             (K3, "default", BF16_FLOPS), (K4, "vae_int8", INT8_OPS)):
         mine = [(n, t) for name, _, _, n, t in rows if name == kern.name]
         per_matte = {key: sum(n * t[key] for n, t in mine)
                      for key in ("ms", "plain_ms", "library_ms", "flops", "bytes")}
-        bound_ms, bound_by = bound(per_matte["flops"], per_matte["bytes"])
+        bound_ms, bound_by = bound(per_matte["flops"], per_matte["bytes"], rate)
         record.append({
             "name": kern.name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "launches": launches[kern.name],
+            "replaces": kern.replaces, "launches": results[path][0][kern.name],
             "max_abs_err": smoke.err[kern.name],
             "ms": per_matte["ms"], "plain_ms": per_matte["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": per_matte["library_ms"],
         })
     log(f"(times in the kernels record are per matte: each shape's median times its "
-        f"launches on the main path; total run {time.perf_counter() - t_start:.1f} s)")
+        f"launches on its path, the default matte's for K1-K3 and the vae_int8 "
+        f"matte's for K4; total run {time.perf_counter() - t_start:.1f} s)")
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,6 +9,11 @@ which is the NHWC memory order the 3x3 conv kernel reads.
 ``impl`` selects the implementation of the hand-kernel sites: "auto" takes
 the kernel for a CUDA tensor and the plain version for a CPU one; "plain"
 takes the plain version on any device (for checking the kernels).
+
+Weights are read through :func:`kernel_of`, which dequantizes int8 storage
+(``weight_i8`` + ``weight_s``, ops/quant.compress_tree_int8) at its use; a
+conv with int8 compute fields (``weight_q``, ops/quant.quantize_vae_tree)
+takes the int8 conv before the dispatch table is consulted.
 """
 
 from __future__ import annotations
@@ -24,34 +29,54 @@ def _bias(p: nn.Module, dtype: torch.dtype):
     return None if p.bias is None else p.bias.to(dtype)
 
 
+def kernel_of(p: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """The layer's weight in ``dtype``; int8 storage is dequantized here, as
+    ``w_i8.float() * w_s`` in fp32 per output channel, so the fp form is a
+    temporary of this use while the resident copy stays int8."""
+    if "weight_i8" in p._buffers:
+        w = p.weight_i8
+        return (w.float() * p.weight_s.reshape(-1, *([1] * (w.ndim - 1)))).to(dtype)
+    return p.weight.to(dtype)
+
+
+def weight_shape(p: nn.Module) -> torch.Size:
+    """The weight's shape, read from the int8 storage where it replaced it."""
+    return p.weight_i8.shape if "weight_i8" in p._buffers else p.weight.shape
+
+
 def linear(p: nn.Linear, x: torch.Tensor, policy: Policy = FP32) -> torch.Tensor:
     cd = policy.compute_dtype
-    return tF.linear(policy.cast_compute(x), p.weight.to(cd), _bias(p, cd))
+    return tF.linear(policy.cast_compute(x), kernel_of(p, cd), _bias(p, cd))
 
 
 def conv2d(p: nn.Conv2d, x: torch.Tensor, *, stride: int = 1, padding=1,
            policy: Policy = FP32, impl: str = "auto") -> torch.Tensor:
     """3x3/1x1 conv.  ``padding`` is an int or ((top, bottom), (left, right));
-    the VAE encoder's downsample pads (0, 1), (0, 1).  The 3x3 stride-1 shapes
-    of the dispatch table (ops/dispatch.py) take the 3x3 conv kernel; every
-    other conv is ``torch.nn.functional.conv2d``."""
+    the VAE encoder's downsample pads (0, 1), (0, 1).  A conv with int8
+    compute fields takes the int8 conv (ops/quant.conv2d_int8, K4 on the
+    card); the 3x3 stride-1 shapes of the dispatch table (ops/dispatch.py)
+    take the 3x3 conv kernel; every other conv is
+    ``torch.nn.functional.conv2d``."""
     cd = policy.compute_dtype
-    w = p.weight
-    if isinstance(padding, int):
-        pad = ((padding, padding), (padding, padding))
-    else:
-        pad = (tuple(padding[0]), tuple(padding[1]))
-    if w.shape[2:] == (3, 3) and stride == 1 and pad == ((1, 1), (1, 1)):
+    if "weight_q" in p._buffers:
+        from ..ops.quant import conv2d_int8
+        return conv2d_int8(x, p.weight_q, p.weight_scale, p.bias, stride=stride,
+                           padding=padding, out_dtype=cd, impl=impl)
+    from ..ops.conv3x3 import pads_of
+    shape = weight_shape(p)
+    pad = pads_of(padding)
+    if shape[2:] == (3, 3) and stride == 1 and pad == ((1, 1), (1, 1)):
         from ..ops.dispatch import conv3x3_route
         b, _, h, wd = x.shape
-        if conv3x3_route(b, h, wd, w.shape[1], w.shape[0], compute_dtype=cd):
+        if conv3x3_route(b, h, wd, shape[1], shape[0], compute_dtype=cd):
             return _conv3x3(p, x, policy=policy, impl=impl)
     x = policy.cast_compute(x)
+    w = kernel_of(p, cd)
     if pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1]:
-        return tF.conv2d(x, w.to(cd), _bias(p, cd), stride=stride,
+        return tF.conv2d(x, w, _bias(p, cd), stride=stride,
                          padding=(pad[0][0], pad[1][0]))
     x = tF.pad(x, (pad[1][0], pad[1][1], pad[0][0], pad[0][1]))
-    return tF.conv2d(x, w.to(cd), _bias(p, cd), stride=stride)
+    return tF.conv2d(x, w, _bias(p, cd), stride=stride)
 
 
 def _conv3x3(p: nn.Conv2d, x, *, policy: Policy, impl: str, affine=None,
@@ -60,7 +85,7 @@ def _conv3x3(p: nn.Conv2d, x, *, policy: Policy, impl: str, affine=None,
     fn = conv3x3_plain if impl == "plain" else conv3x3
     cd = policy.compute_dtype
     res = None if residual is None else policy.cast_compute(residual)
-    return fn(policy.cast_compute(x), p.weight.to(cd), p.bias, affine=affine,
+    return fn(policy.cast_compute(x), kernel_of(p, cd), p.bias, affine=affine,
               residual=res)
 
 
@@ -114,12 +139,13 @@ def gn_silu_conv2d(p_norm: nn.GroupNorm, p_conv: nn.Conv2d, x: torch.Tensor, *,
     """conv(silu(GroupNorm(x))) [+ residual], the resnet pattern.  Where the
     dispatch table says so, the norm's apply pass and the SiLU ride the 3x3
     conv kernel's prologue and the residual its epilogue; elsewhere the
-    unfused composition runs (the same math)."""
-    w = p_conv.weight
-    if w.shape[2:] == (3, 3):
+    unfused composition runs (the same math); so does a conv with int8
+    compute fields, whose conv2d takes the int8 conv."""
+    shape = weight_shape(p_conv)
+    if shape[2:] == (3, 3) and "weight_q" not in p_conv._buffers:
         from ..ops.dispatch import conv3x3_route
         b, _, h, wd = x.shape
-        route = conv3x3_route(b, h, wd, w.shape[1], w.shape[0],
+        route = conv3x3_route(b, h, wd, shape[1], shape[0],
                               compute_dtype=policy.compute_dtype)
         if route is not None and route.fuse_gn:
             affine = group_norm_stats(p_norm, x)

@@ -26,6 +26,11 @@ from .unet import MatteUNet
 from .vae import AutoencoderKL
 
 
+# ROADMAP entries are named by their titles
+_META_PATHS = 'ROADMAP Queue 1: "Remaining meta-arch paths"'
+_TEXT_TOWER = 'ROADMAP Queue 1: "Text tower"'
+
+
 def _todo(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet ({item})")
 
@@ -58,19 +63,19 @@ class SDMatte(nn.Module):
                 "reference crashes identically); SDMatte checkpoints require "
                 "the aux latent")
         if AUX_INPUT_COORDS[aux_type] == "point_coords":
-            raise _todo("the point-prompt branch", "ROADMAP Queue 1 item 5")
+            raise _todo("the point-prompt branch", _META_PATHS)
         if speed_aux_half or speed_rgb_half or speed_decode_half:
-            raise _todo("the speed modes", "ROADMAP Queue 1 item 5")
+            raise _todo("the speed modes", _META_PATHS)
         if vae_chunk:
-            raise _todo("vae_chunk", "ROADMAP Queue 1 item 5")
+            raise _todo("vae_chunk", _META_PATHS)
         if vae_encode_split or (vae_encode_split is None and 2 * b > 16):
-            raise _todo("the split VAE encode", "ROADMAP Queue 1 item 5")
+            raise _todo("the split VAE encode", _META_PATHS)
         if return_intermediates or cfg.use_dis_loss:
             raise _todo("return_intermediates and the distillation features",
-                        "ROADMAP Queue 1 items 5 and 10")
+                        f'{_META_PATHS} and "Training, video, multi-device"')
         if not all(cfg.unet.use_encoder_hidden_states_list):
             raise _todo("text-conditioned gating (the CLIP text tower)",
-                        "ROADMAP Queue 1 item 7")
+                        _TEXT_TOWER)
 
         # -- latents: one concat-batch encode of rgb || aux ---------------
         aux = data[aux_type]

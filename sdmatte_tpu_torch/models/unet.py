@@ -250,7 +250,8 @@ class MatteUNet(nn.Module):
         if coords_embed:
             if "bbox_mask_coords" not in coords_embed:
                 raise NotImplementedError(
-                    "point prompts are not ported yet (ROADMAP Queue 1 item 5)")
+                    'point prompts are not ported yet (ROADMAP Queue 1: '
+                    '"Remaining meta-arch paths")')
             ce = coords_embed["bbox_mask_coords"].reshape(b, -1)
             emb = emb + self.bbox_embedding(ce.to(cd), policy)
         emb = emb.to(cd)
@@ -260,7 +261,7 @@ class MatteUNet(nn.Module):
         if not all(cfg.use_encoder_hidden_states_list):
             raise NotImplementedError(
                 "text-conditioned gating needs the CLIP text tower, which is "
-                "not ported yet (ROADMAP Queue 1 item 7)")
+                'not ported yet (ROADMAP Queue 1: "Text tower")')
         ctx = encoder_hidden_states
         enc_bias = None
         if encoder_attention_mask is not None:

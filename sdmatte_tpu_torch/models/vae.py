@@ -4,7 +4,10 @@ Parameter names are the checkpoint's under ``vae.``.  Encode is
 deterministic (the moments' mean times ``scaling_factor``).  The encoder's
 3x3 convs at the dispatch table's shapes run the conv kernel K3 with the
 GroupNorm+SiLU prologue and residual epilogue; the mid-block's single-head
-attention (scale 1/sqrt(c)) runs K2 on the card.
+attention (scale 1/sqrt(c)) runs K2 on the card.  Under ``vae_int8``
+(ops/quant.quantize_vae_tree) every 3x3 conv here, the stride-2
+downsamplers and the upsamplers' convs included, runs the int8 conv K4
+instead.
 """
 
 from __future__ import annotations

@@ -1,13 +1,17 @@
-"""3x3 stride-1 conv with an optional GroupNorm-affine + SiLU prologue and an
-optional residual epilogue: the hand kernel and its plain version.
+"""3x3 convs: the hand kernels and their plain versions.
 
-  K3  csrc/conv3x3.cu, an implicit-GEMM conv on NHWC memory; replaces
-      sdmatte_tpu/ops/conv3x3.py::_kernel_v5 and covers ::_kernel (the
-      padded-halo variant), since it masks its own ragged edges.
+  K3  csrc/conv3x3.cu, an implicit-GEMM bf16/fp32 conv (stride 1) on NHWC
+      memory with an optional GroupNorm-affine + SiLU prologue and residual
+      epilogue; replaces sdmatte_tpu/ops/conv3x3.py::_kernel_v5 and covers
+      ::_kernel (the padded-halo variant), since it masks its own ragged
+      edges.  :func:`conv3x3_csplit` is the channel-split wrapper over it.
+  K4  csrc/conv3x3_i8.cu, the int8 x int8 -> int32 conv with the fp32
+      dequantizing epilogue; replaces ::_kernel_i8 and also takes the
+      stride-2 and ragged-channel int8 convs of the int8 VAE.
 
-It is bound by operations on the H100; the source note says what the design
-does about it.  :func:`conv3x3` takes the plain version for a CPU tensor and
-launches the kernel for a CUDA tensor, or raises.
+Both are bound by operations on the H100; the source notes say what the
+designs do about it.  :func:`conv3x3` and :func:`conv3x3_int8` take the plain
+version for a CPU tensor and launch the kernel for a CUDA tensor, or raise.
 """
 
 from __future__ import annotations
@@ -24,6 +28,11 @@ K3 = Kernel("conv3x3", "conv3x3", "sdm_conv3x3",
             + [ctypes.c_void_p],
             replaces="sdmatte_tpu/ops/conv3x3.py:56 (_kernel_v5), "
                      ":182 (_kernel)")
+
+K4 = Kernel("conv3x3_int8", "conv3x3_i8", "sdm_conv3x3_i8",
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p],
+            replaces="sdmatte_tpu/ops/conv3x3.py:336 (_kernel_i8)")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # input channels per chunk of the kernel (ConvShape<T>::BKC in the source;
@@ -88,4 +97,113 @@ def conv3x3(x, w, b=None, *, affine=None, residual=None):
     K3.launch(_DTYPES[x.dtype], ptr(x), ptr(w_nhwc), ptr(bias), ptr(a), ptr(d),
               ptr(residual), ptr(y), bsz, h, wd, cin, cout,
               stream_handle(x.device))
+    return y
+
+
+def conv3x3_csplit(x, w, b=None, *, affine=None, residual=None,
+                   fuse_sum: bool = False):
+    """:func:`conv3x3` as two half-input-channel passes summed
+    (sdmatte_tpu/ops/conv3x3.py::conv3x3_same_csplit): conv(x, w) =
+    conv(x_lo, w_lo) + conv(x_hi, w_hi), each half applying its slice of
+    the GroupNorm affine.  ``fuse_sum`` rides the cross-pass add and the
+    residual on the second pass's residual epilogue; otherwise the adds run
+    outside.  No dispatch entry takes it, as in the JAX package."""
+    cl = torch.channels_last
+    ch = x.shape[1] // 2
+    x_lo = x[:, :ch].contiguous(memory_format=cl)
+    x_hi = x[:, ch:].contiguous(memory_format=cl)
+    w_lo, w_hi = w[:, :ch], w[:, ch:]
+    a_lo = a_hi = None
+    if affine is not None:
+        a, d = affine
+        a_lo = (a[:, :ch].contiguous(), d[:, :ch].contiguous())
+        a_hi = (a[:, ch:].contiguous(), d[:, ch:].contiguous())
+    if fuse_sum:
+        half1 = conv3x3(x_lo, w_lo, None, affine=a_lo, residual=residual)
+        return conv3x3(x_hi, w_hi, b, affine=a_hi, residual=half1)
+    half1 = conv3x3(x_lo, w_lo, None, affine=a_lo)
+    half2 = conv3x3(x_hi, w_hi, b, affine=a_hi)
+    out = half1 + half2
+    return out if residual is None else out + residual.to(out.dtype)
+
+
+# ------------------------------------------------------------------ int8 ---
+
+def pads_of(padding):
+    """An int or ((top, bottom), (left, right)) -> the explicit pair."""
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return (tuple(padding[0]), tuple(padding[1]))
+
+
+def _out_size(n: int, lo: int, hi: int, stride: int) -> int:
+    return (n + lo + hi - 3) // stride + 1
+
+
+def conv3x3_int8_plain(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
+                       out_dtype=torch.bfloat16):
+    """The plain version: the integer conv computed exactly, then
+    ``float(acc) * scale_vec (+ b)`` in fp32 and one rounding to out_dtype.
+
+    xq (B,Cin,H,W) int8, wq (Cout,Cin,3,3) int8, scale_vec (Cout,) fp32 =
+    s_x * w_scale, b (Cout,) or None.  The nine taps are fp64 matrix
+    products over shifted views: every partial sum is an integer below 2^53,
+    so they are exact in any order, and the fp64 -> fp32 conversion rounds
+    as JAX's int32 -> fp32 does."""
+    (pt, pb), (pl, pr) = pads_of(padding)
+    bsz, _, h, w = xq.shape
+    ho, wo = _out_size(h, pt, pb, stride), _out_size(w, pl, pr, stride)
+    xp = tF.pad(xq.permute(0, 2, 3, 1).double(), (0, 0, pl, pr, pt, pb))
+    w64 = wq.double()
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            xs = xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+                    dx:dx + stride * (wo - 1) + 1:stride]
+            t = xs @ w64[:, :, dy, dx].t()
+            acc = t if acc is None else acc.add_(t)
+    y = acc.float() * scale_vec.float()
+    if b is not None:
+        y = y + b.float()
+    return y.to(out_dtype).permute(0, 3, 1, 2)
+
+
+def conv3x3_int8(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
+                 out_dtype=torch.bfloat16):
+    """Same contract as :func:`conv3x3_int8_plain` (that of
+    sdmatte_tpu/ops/conv3x3.py::conv3x3_same_int8, widened to stride 2 and
+    any padding of 0-2 a side).  On the card xq must be in
+    ``torch.channels_last`` and the output is too; the weight is read as
+    (Cout, 3, 3, Cin), which is free for a channels_last weight."""
+    if xq.device.type == "cpu":
+        return conv3x3_int8_plain(xq, wq, scale_vec, b, stride=stride,
+                                  padding=padding, out_dtype=out_dtype)
+    if xq.device.type != "cuda":
+        raise ValueError(f"conv3x3_int8: no kernel for device {xq.device}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8 or out_dtype not in _DTYPES:
+        raise ValueError(f"conv3x3_int8: no kernel for x {xq.dtype}, w {wq.dtype} "
+                         f"-> {out_dtype}")
+    bsz, cin, h, w = xq.shape
+    cout = wq.shape[0]
+    if wq.shape != (cout, cin, 3, 3) or wq.device != xq.device:
+        raise ValueError(f"conv3x3_int8: weight {tuple(wq.shape)} does not fit x "
+                         f"{tuple(xq.shape)}")
+    if scale_vec.shape != (cout,) or scale_vec.dtype != torch.float32 \
+            or not scale_vec.is_contiguous() or scale_vec.device != xq.device:
+        raise ValueError("conv3x3_int8: scale_vec must be a contiguous (Cout,) "
+                         "fp32 tensor on x's device")
+    (pt, pb), (pl, pr) = pads_of(padding)
+    if stride not in (1, 2) or not all(0 <= q <= 2 for q in (pt, pb, pl, pr)):
+        raise ValueError(f"conv3x3_int8: no kernel for stride {stride}, "
+                         f"padding {padding}")
+    if not xq.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv3x3_int8: x must be channels_last")
+    ho, wo = _out_size(h, pt, pb, stride), _out_size(w, pl, pr, stride)
+    w_nhwc = wq.permute(0, 2, 3, 1).contiguous()
+    bias = None if b is None else b.to(device=xq.device, dtype=torch.float32).contiguous()
+    y = torch.empty((bsz, cout, ho, wo), dtype=out_dtype, device=xq.device,
+                    memory_format=torch.channels_last)
+    K4.launch(_DTYPES[out_dtype], ptr(xq), ptr(w_nhwc), ptr(scale_vec), ptr(bias),
+              ptr(y), bsz, h, w, cin, cout, ho, wo, stride, pt, pl,
+              stream_handle(xq.device))
     return y

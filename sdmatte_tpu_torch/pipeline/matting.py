@@ -9,6 +9,7 @@ compile cache; ``warmup`` builds the hand kernels and runs each size once.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -20,6 +21,7 @@ from ..configs import AUX_INPUT_COORDS
 from ..core import imaging
 from ..core.dtypes import FP32, Policy
 from ..models.sdmatte import SDMatte
+from ..ops import quant
 from . import postprocess
 
 SPEED_MODES = ("off", "aux_half", "rgb_half", "decode_half", "fast", "fastest")
@@ -52,6 +54,14 @@ class MattingPipeline:
     pipeline moves it to ``device`` in the policy's parameter dtype, in
     ``torch.channels_last``.
 
+    ``vae_int8`` gives every 3x3 VAE conv int8 compute fields (the int8
+    conv, K4 on the card); ``weight_storage="int8"`` keeps every large conv
+    and linear weight as int8 plus an fp32 scale, dequantized at its use.
+    Both quantize the weights as the model holds them, before the cast to
+    the parameter dtype, compute first so that the two compose (the JAX
+    pipeline's order); they work on a copy, so the caller's model keeps its
+    fp weights.
+
     ``impl``: "auto" runs the hand kernels on the card (the plain versions
     on the CPU); "plain" runs the plain versions on the card too, for
     checking the kernels end to end.  Nothing chooses "plain" by itself."""
@@ -70,22 +80,25 @@ class MattingPipeline:
             raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         if speed_mode != "off":
             raise NotImplementedError("the speed modes are not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
-        if vae_int8 or weight_storage == "int8":
-            raise NotImplementedError("int8 weights and convs are not ported "
-                                      "yet (ROADMAP Queue 1 item 8)")
+                                      "(ROADMAP Queue 1: \"Remaining meta-arch paths\")")
         if not all(model.cfg.unet.use_encoder_hidden_states_list):
             raise NotImplementedError(
                 "text-conditioned gating needs the CLIP text tower, which is "
-                "not ported yet (ROADMAP Queue 1 item 7)")
+                "not ported yet (ROADMAP Queue 1: \"Text tower\")")
         self.device = resolve_device(device)
         self.cfg = model.cfg
         self.policy = policy
         self.impl = impl
         self.vae_chunk = vae_chunk
         self.vae_encode_split = vae_encode_split
-        self.model = model.to(device=self.device, dtype=policy.param_dtype,
-                              memory_format=torch.channels_last).eval()
+        if vae_int8 or weight_storage == "int8":
+            model = copy.deepcopy(model)
+            if vae_int8:
+                quant.quantize_vae_tree_(model.vae)
+            if weight_storage == "int8":
+                quant.compress_tree_int8_(model)
+        self.model = quant.stage_(model, device=self.device,
+                                  dtype=policy.param_dtype).eval()
 
     def _pre(self, image, prompt_mask, *, size: int):
         """image (B,H,W,3), prompt_mask (B,H,W) in [0,1] -> NCHW (S,S) pair."""

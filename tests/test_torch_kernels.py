@@ -14,10 +14,11 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from sdmatte_tpu.ops.conv3x3 import conv3x3_same
+from sdmatte_tpu.ops.conv3x3 import conv3x3_same, conv3x3_same_csplit, conv3x3_same_int8
 from sdmatte_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 
-from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from sdmatte_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_csplit, conv3x3_int8,
+                                           conv3x3_int8_plain, conv3x3_plain)
 from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
 
@@ -96,6 +97,58 @@ def test_plain_conv_matches_pallas_kernel(rng, case):
                         residual=None if res is None else _t(res).permute(0, 3, 1, 2))
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
                                atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("fuse_sum", [True, False])
+def test_csplit_matches_pallas_wrapper(rng, fuse_sum):
+    """conv3x3_csplit against conv3x3_same_csplit in interpret mode, with the
+    GroupNorm affine and the residual in play, at tests/test_conv3x3.py's
+    csplit bar."""
+    x = rng.standard_normal((1, 16, 16, 16)).astype(np.float32)
+    wk = (rng.standard_normal((3, 3, 16, 8)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    a = rng.uniform(0.5, 2.0, (1, 16)).astype(np.float32)
+    d = rng.uniform(-0.5, 0.5, (1, 16)).astype(np.float32)
+    res = rng.standard_normal((1, 16, 16, 8)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = conv3x3_same_csplit(jnp.asarray(x), jnp.asarray(wk), jnp.asarray(b),
+                                  affine=(jnp.asarray(a), jnp.asarray(d)),
+                                  residual=jnp.asarray(res), block_rows=8, fuse_sum=fuse_sum)
+    got = conv3x3_csplit(_t(x).permute(0, 3, 1, 2), _t(wk).permute(3, 2, 0, 1), _t(b),
+                         affine=(_t(a), _t(d)), residual=_t(res).permute(0, 3, 1, 2),
+                         fuse_sum=fuse_sum)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,bias", [((1, 16, 24, 8, 16), True), ((2, 13, 24, 8, 8), False)])
+def test_int8_plain_conv_matches_pallas_kernel(rng, shape, bias):
+    """conv3x3_int8_plain against conv3x3_same_int8 (the TPU int8 kernel) in
+    interpret mode, at tests/test_conv3x3.py's int8 bar."""
+    b, h, w, cin, cout = shape
+    xq = rng.integers(-127, 128, (b, h, w, cin)).astype(np.int8)
+    wq = rng.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    scale = rng.uniform(0.5, 2.0, (cout,)).astype(np.float32)
+    bv = rng.standard_normal(cout).astype(np.float32) if bias else None
+    with pltpu.force_tpu_interpret_mode():
+        ref = conv3x3_same_int8(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
+                                None if bv is None else jnp.asarray(bv), block_rows=8,
+                                out_dtype=jnp.float32)
+    got = conv3x3_int8_plain(torch.from_numpy(xq).permute(0, 3, 1, 2),
+                             torch.from_numpy(wq).permute(3, 2, 0, 1), _t(scale),
+                             None if bv is None else _t(bv), out_dtype=torch.float32)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                               atol=1e-3, rtol=1e-6)
+
+
+def test_int8_wrapper_takes_the_plain_version_on_the_cpu(rng):
+    xq = torch.from_numpy(rng.integers(-127, 128, (2, 3, 9, 11)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (5, 3, 3, 3)).astype(np.int8))
+    scale = _t(rng.uniform(0.5, 2.0, 5))
+    kw = dict(stride=2, padding=((0, 1), (0, 1)), out_dtype=torch.float32)
+    got = conv3x3_int8(xq, wq, scale, **kw)
+    assert got.shape == (2, 5, 4, 5)
+    torch.testing.assert_close(got, conv3x3_int8_plain(xq, wq, scale, **kw), rtol=0, atol=0)
 
 
 # ------------------------------------------------------------- on the card ---
@@ -184,3 +237,51 @@ def test_k3_matches_plain(cuda, dtype, shape, gn, res):
     tol = (3e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     _close(conv3x3(x, wt, bias, affine=affine, residual=r),
            conv3x3_plain(x, wt, bias, affine=affine, residual=r), *tol)
+
+
+# K4: every int8 conv class of the vae_int8 path, at small spatial sizes
+K4_CASES = {
+    # (b, h, w, cin, cout), stride, padding
+    "s1_128": ((2, 32, 48, 128, 128), 1, 1),
+    "s1_ragged_256_to_320": ((1, 50, 37, 256, 320), 1, 1),
+    "s2_downsampler": ((2, 64, 64, 128, 128), 2, ((0, 1), (0, 1))),
+    "s2_ragged": ((1, 33, 27, 256, 256), 2, ((0, 1), (0, 1))),
+    "cin3_conv_in": ((2, 40, 40, 3, 128), 1, 1),
+    "cin4_conv_in": ((1, 24, 24, 4, 512), 1, 1),
+    "cout3_conv_out": ((1, 40, 40, 128, 3), 1, 1),
+    "cout8_conv_out": ((2, 16, 16, 512, 8), 1, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_matches_plain(cuda, case, out_dtype):
+    (b, h, w, cin, cout), stride, padding = K4_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cl = torch.channels_last
+    xq = torch.randint(-127, 128, (b, cin, h, w), generator=g, device=cuda,
+                       dtype=torch.int8).contiguous(memory_format=cl)
+    wq = torch.randint(-127, 128, (cout, cin, 3, 3), generator=g, device=cuda,
+                       dtype=torch.int8).contiguous(memory_format=cl)
+    scale = torch.rand(cout, generator=g, device=cuda) * 1e-4 + 1e-5
+    bias = torch.randn(cout, generator=g, device=cuda) * 0.1
+    kw = dict(stride=stride, padding=padding, out_dtype=out_dtype)
+    tol = (1e-3, 1e-6) if out_dtype == torch.float32 else (2e-2, 2e-2)
+    _close(conv3x3_int8(xq, wq, scale, bias, **kw),
+           conv3x3_int8_plain(xq, wq, scale, bias, **kw), *tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse_sum", [True, False])
+def test_csplit_on_the_card_matches_direct(cuda, fuse_sum):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cl = torch.channels_last
+    x = torch.randn(2, 256, 48, 40, generator=g, device=cuda).contiguous(memory_format=cl)
+    wt = torch.randn(128, 256, 3, 3, generator=g, device=cuda) / 48.0
+    bias = torch.randn(128, generator=g, device=cuda) * 0.1
+    affine = (torch.rand(2, 256, generator=g, device=cuda) + 0.5,
+              torch.rand(2, 256, generator=g, device=cuda) - 0.5)
+    r = torch.randn(2, 128, 48, 40, generator=g, device=cuda).contiguous(memory_format=cl)
+    _close(conv3x3_csplit(x, wt, bias, affine=affine, residual=r, fuse_sum=fuse_sum),
+           conv3x3_plain(x, wt, bias, affine=affine, residual=r), 5e-5, 1e-4)

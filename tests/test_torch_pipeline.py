@@ -8,6 +8,7 @@ inputs at an odd size, and agree at MAE <= 1e-4
 """
 
 import ast
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -83,8 +84,14 @@ def test_pipeline_rejects_unknown_options(pipes):
         MattingPipeline(model, device="cpu", speed_mode="turbo")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MattingPipeline(model, device="cpu", speed_mode="fast")
+    with pytest.raises(ValueError, match="weight_storage"):
+        MattingPipeline(model, device="cpu", weight_storage="int4")
+    text_gated = dataclasses.replace(model.cfg, unet=dataclasses.replace(
+        model.cfg.unet, use_encoder_hidden_states_list=(True, False, True)))
+    with torch.device("meta"):
+        gated = SDMatte(text_gated)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MattingPipeline(model, device="cpu", weight_storage="int8")
+        MattingPipeline(gated, device="cpu")
 
 
 def test_default_device_is_the_card(monkeypatch):
