@@ -5,14 +5,18 @@
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card's name and power limit, torch and CUDA versions; TF32 off
-  2. build the hand kernels from csrc/ (one nvcc per source, in parallel)
+  2. build the hand kernels from csrc/ (one nvcc per source, in parallel);
+     per source the registers, spills, wgmma serialization warnings and the
+     HGMMA / UTMALDG count of its SASS (K1 and K3 must have both and no
+     spill, or the run fails before its result lines)
   3. hold each kernel against its plain version at every main-path shape
-     class, at ragged shapes, and in fp32; the channel-split conv wrapper
-     against the direct conv
+     class, at shapes ragged for its tiles, and in fp32; the channel-split
+     conv wrapper against the direct conv
   4. time each kernel, its plain version and the one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
      the least time the card could take (bytes at 3.35 TB/s, or operations
-     at 989 TFLOP/s bf16 or 1,979 TOP/s int8, whichever is larger)
+     at 989 TFLOP/s bf16 or 1,979 TOP/s int8, whichever is larger); for K1
+     also the exp2 (MUFU) bound
   5. three mattes end to end at full width (SDMatteConfig(): U-Net
      320/640/1280/1280, VAE 128/256/512/512) with seeded random weights,
      bf16, 1024 px: the default, vae_int8=True (every 3x3 VAE conv on the
@@ -43,6 +47,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12           # dense bf16 tensor cores
 INT8_OPS = 1979e12            # dense int8 tensor cores
+# exp2 on the SFU (MUFU): 16 per clock per SM, 132 SMs, at the 1.83 GHz that
+# the bf16 peak implies (989e12 / (132 SMs x 4096 flop per clock)); one per
+# attention score.  Printed beside K1's bound, not part of it.
+MUFU_EX2_PER_S = 16 * 132 * 1.83e9
 
 # Main-path launches per 1024 px matte, read from the code:
 #   K1: 16 U-Net transformers (down 2+2+2, mid 1, up 3+3+3), one biased
@@ -131,6 +139,16 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+def sass_counts(lib) -> dict:
+    """HGMMA (wgmma), UTMALDG (TMA load) and USETMAXREG instructions in a
+    built library's SASS (cuobjdump, beside nvcc)."""
+    from sdmatte_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+
+
 def median_ms(torch, fn, reps=5, warm=2):
     for _ in range(warm):
         fn()
@@ -206,6 +224,12 @@ class Smoke:
         cases += [
             ("flash_attention_k1", "ragged 80^2 (640 px)", (1, 5, 6400, 6400, 64), True,
              torch.bfloat16, "attn_bf16"),
+            # 75^2 = 5625 = 43 x 128 + 121: ragged for the 128-row and
+            # 128-key tiles (6400 is not)
+            ("flash_attention_k1", "ragged 75^2 (600 px)", (1, 5, 5625, 5625, 64), True,
+             torch.bfloat16, "attn_bf16"),
+            ("flash_attention_k1", "ragged cross 75^2 x 5000", (1, 5, 5625, 5000, 64), False,
+             torch.bfloat16, "attn_bf16"),
             ("flash_attention_k1", "fp32 self 32^2", (1, 20, 1024, 1024, 64), True,
              torch.float32, "attn_fp32"),
             ("flash_attention_k1", "fp32 ragged 100x200", (1, 2, 100, 200, 64), True,
@@ -244,6 +268,8 @@ class Smoke:
                  for label, shape, gn, res, _ in CONV_SHAPES]
         cases += [
             ("ragged 100x75 gn+res", (1, 100, 75, 128, 128), True, True, torch.bfloat16, "conv_bf16"),
+            ("ragged 50x37 64->320 gn+res", (1, 50, 37, 64, 320), True, True, torch.bfloat16,
+             "conv_bf16"),
             ("fp32 ragged 100x75 gn+res", (1, 100, 75, 128, 128), True, True,
              torch.float32, "conv_fp32"),
             ("fp32 128^2 256->256 gn", (2, 128, 128, 256, 256), True, False,
@@ -337,6 +363,7 @@ class Smoke:
                 nbytes = 2 * b * h * (2 * lq + 2 * lk) * d + (4 * b * lk if biased else 0)
                 t["flops"], t["bytes"] = flops, nbytes
                 t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+                t["mufu_ms"] = b * h * lq * lk / MUFU_EX2_PER_S * 1e3
                 rows.append((name, label, shape, launches, t))
                 del q, k, v
         for label, shape, gn, res, launches in CONV_SHAPES:
@@ -366,7 +393,8 @@ class Smoke:
             del x, xa, r
         rows += self.time_int8_conv()
         for name, label, shape, launches, t in rows:
-            extra = f"  cudnn_bf16_ms {t['cudnn_bf16_ms']:.4f}" if "cudnn_bf16_ms" in t else ""
+            extra = "".join(f"  {key} {t[key]:.4f}" for key in ("mufu_ms", "cudnn_bf16_ms")
+                            if key in t)
             log(f"  time {name:20s} {label:24s} {str(shape):32s} x{launches}  "
                 f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
                 f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
@@ -608,8 +636,8 @@ class Smoke:
         groups = {}
         for ms, n, key in rows:
             k = key.lower()
-            group = ("hand kernels" if "flash_fwd" in k or "conv3x3_kernel" in k
-                     or "conv3x3_i8_kernel" in k
+            group = ("hand kernels" if "flash_fwd" in k or "conv3x3_sm90" in k
+                     or "conv3x3_f32" in k or "conv3x3_i8_kernel" in k
                      else "cuDNN conv" if "fprop" in k or "conv" in k
                      else "GEMM" if "gemm" in k or "cutlass" in k
                      else "reductions" if "reduce" in k
@@ -660,10 +688,26 @@ def main() -> int:
     report = _build.build()
     log(f"  built in {time.perf_counter() - t0:.1f} s: "
         f"{ {k: round(v['seconds'], 1) for k, v in report.items()} }")
+    build_faults = []
     for name, r in report.items():
-        spills = [ln for ln in r["log"].splitlines() if "spill" in ln and " 0 bytes spill" not in ln]
-        regs = [int(ln.split("Used ")[1].split()[0]) for ln in r["log"].splitlines() if "Used " in ln]
-        log(f"  {name}: registers per instantiation {regs}; spilling lines {len(spills)}")
+        lines = r["log"].splitlines()
+        spills, func = [], ""
+        for ln in lines:
+            if "Function properties for" in ln:
+                func = ln.split("Function properties for")[1].strip()
+            elif "spill" in ln and " 0 bytes spill" not in ln:
+                spills.append(f"{func}: {ln.strip()}")
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
+        serial = [ln for ln in lines if "wgmma.mma_async instructions are serialized" in ln]
+        sass = sass_counts(_build.library_path(name))
+        log(f"  {name}: registers per instantiation {regs}; spilling lines {len(spills)}; "
+            f"wgmma serialization warnings {len(serial)}; SASS {sass}")
+        for ln in spills + serial:
+            log(f"    {ln.strip()[:240]}")
+        # K1 and K3 are built for Hopper: wgmma and TMA, and nothing spills
+        if name in ("flash_attention", "conv3x3") and (
+                spills or not sass["HGMMA"] or not sass["UTMALDG"]):
+            build_faults.append(f"{name}: spills, or no HGMMA / UTMALDG in its SASS")
 
     smoke = Smoke(torch)
     smoke.profile_on = "--profile" in sys.argv[1:]
@@ -712,9 +756,15 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": per_matte["library_ms"],
         })
+    k1 = [(n, t) for name, _, _, n, t in rows if name == K1.name]
+    log(f"  per matte: K1 MUFU bound (1 exp2 per score at 16/clk/SM) "
+        f"{sum(n * t['mufu_ms'] for n, t in k1):.4f} ms beside its tensor bound "
+        f"{sum(n * t['flops'] for n, t in k1) / BF16_FLOPS * 1e3:.4f} ms")
     log(f"(times in the kernels record are per matte: each shape's median times its "
         f"launches on its path, the default matte's for K1-K3 and the vae_int8 "
         f"matte's for K4; total run {time.perf_counter() - t_start:.1f} s)")
+    if build_faults:
+        raise AssertionError("; ".join(build_faults))
     print(smi, flush=True)
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

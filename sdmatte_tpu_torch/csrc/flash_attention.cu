@@ -6,41 +6,57 @@
 //   K1 (d <= 128): ::_kernel_fused_l and ::_kernel_d64_v2, the U-Net's d=64
 //      self- and cross-attention;
 //   K2 (d = 512):  ::_kernel, the VAE mid-block's single-head attention.
-// Both are instantiations of one template (flash_fwd below).
 //
-// What bounds it on the H100: operations. At the main path's shapes
-// (L = 1024..16384 keys, d = 64 or 512) the kernel does 4*L*d flops per query
-// row and reads each K/V byte once per 64-row query tile, far above the card's
-// ~295 flop/byte ridge. So the design keeps the (Lq, Lk) score matrix out of
-// device memory (online softmax, fp32 running max and sum in registers) and
-// feeds the tensor cores with mma.sync m16n8k16 bf16 -> fp32; K/V tiles stream
-// through a two-stage cp.async ring. wgmma, TMA and warp specialisation are
-// not used yet.
+// What bounds it on the H100: operations.  At the main path's shapes
+// (L = 256..16384 keys, d = 64 or 512) the kernel does 4*L*d flops per query
+// row and reads each K/V byte once per query tile, far above the card's ~295
+// flop/byte ridge.  So the (Lq, Lk) score matrix never leaves the chip
+// (online softmax, fp32 running max and sum in registers).
 //
-// Layout: one block per (query tile, batch*head); the KV loop runs inside
-// the block in place of the TPU grid's sequential ki axis.  Each warp owns 16
-// query rows.  K1 (KSPLIT = 1): a warp computes its rows' scores for the whole
-// KV tile, keeps P in registers and feeds it straight into the PV product.
-// (Two 16-row m-tiles per warp, which halves the shared-memory reads per
-// product, measured no faster at d=64: the kernel is held back by the exp2
-// rate as much as by the products, and the larger tile costs resident warps.)
-// K2 (KSPLIT = 2): a d=512 accumulator does not fit one warp's registers, so
-// two warps share a row group: each scores half of the KV tile, the row max
-// and P are exchanged through shared memory, and each accumulates half of d.
+// K1 in bf16 (flash_fwd_sm90, the main path) is built for Hopper, FA3-style.
+// At d = 64 each score costs 256 tensor flops and one exp2, and the SM's
+// MUFU unit does 16 exp2 per clock, about the rate at which the tensor cores
+// produce scores (~16 per clock at 989 TFLOP/s); the fp32 pipe adds ~5
+// operations per score.  So no unit may wait for another:
+//   - a CTA holds 128 query rows: two consumer warpgroups of 64 rows on
+//     wgmma (S = QK^T m64n128k16 from shared memory; O += PV m64n64k16 with P
+//     from registers, the S accumulator converted in place, and V read
+//     MN-major) and one producer warp that keeps TMA loads of Q and a 3-stage
+//     ring of 128-key K/V tiles (128-byte swizzle, any (b, h, row) strides)
+//     in flight, with the tile's bias, times log2(e), staged beside K;
+//   - within a warpgroup, S of tile j+1 is issued before the softmax of tile
+//     j (the softmax runs while the tensor cores work); across the two
+//     warpgroups, named barriers alternate the issue of the products, so one
+//     warpgroup's exp2 runs under the other's wgmma;
+//   - the softmax is one FFMA (scale*log2(e) and the staged bias folded),
+//     ex2.approx, and fp32 running max and sum.  Keys past Lk carry
+//     MASK_VALUE as their staged bias, unscaled in the log2 domain, against a
+//     K row that TMA zero-filled, so they score exactly MASK_VALUE; the bias
+//     is added, never turned into -inf, so a row whose keys all carry -10000
+//     still gives the softmax of its scores.  Query rows past Lq are computed
+//     on zeros and not stored.
+//   Measured at the 16384-key shapes (PERF.md): 38-47% of the tensor and
+//   MUFU bounds, which are equal there.  The softmax side (MUFU and fp32
+//   issue) binds, not the tensor cores: the unbiased path, one fp32
+//   operation per score fewer, runs the same shapes 11-19% faster.
+//   At d = 128 (off the main path) S, P and O of a 128-key tile do not fit
+//   the consumers' registers together, so each tile runs as two 64-key
+//   halves, QK, softmax and PV in turn (the two warpgroups still overlap
+//   each other).
 //
-// Tensors are addressed through (batch, head, row) strides; d is contiguous.
-// Keys past Lk score exactly MASK_VALUE, as the TPU kernel's padded keys do;
-// query rows past Lq are computed on zeros and not stored.  The bias is
-// added, never turned into -inf, so a row whose keys all carry -10000 still
-// gives the uniform average.
-//
-// fp32 inputs run the same tiling, masking and online softmax with the two
-// products done by plain FMA on the same fragment layout (no tensor cores), so
-// the kernel can be checked at fp32 tolerance.
+// K2 (d = 512, bf16 and fp32) and K1 in fp32 (the check route, not on the main
+// path) use the first design, flash_fwd: mma.sync m16n8k16 bf16 -> fp32
+// (fp32: plain FMA on the same fragment layout) and a two-stage cp.async
+// ring; one block per (query tile, batch*head), each warp owns 16 query rows,
+// and at d = 512 two warps share a row group: each scores half of the KV
+// tile, the row max and P are exchanged through shared memory, and each
+// accumulates half of d.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -134,10 +150,9 @@ struct FlashShape {
   static constexpr int kPad = 16 / sizeof(T);
   static constexpr int kLds = D + kPad;     // Q/K/V row stride (elements)
   static constexpr int kLdp = BK + kPad;    // P row stride (elements)
-  static constexpr bool kPInSmem = KSPLIT > 1 || !Cfg<T>::kTensorCores;
   static constexpr size_t kQBytes = size_t(BQ) * kLds * sizeof(T);
   static constexpr size_t kKVBytes = size_t(STAGES) * BK * kLds * sizeof(T);
-  static constexpr size_t kPBytes = kPInSmem ? size_t(BQ) * kLdp * sizeof(T) : 0;
+  static constexpr size_t kPBytes = size_t(BQ) * kLdp * sizeof(T);
   static constexpr size_t kRedBytes = KSPLIT > 1 ? size_t(2) * KSPLIT * BQ * sizeof(float) : 0;
   static constexpr size_t kSmem = kQBytes + 2 * kKVBytes + kPBytes + kRedBytes;
 };
@@ -320,15 +335,27 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
     }
 
     // ---- O += P V ----
-    if constexpr (kTC && !S::kPInSmem) {
-      // P goes from the score fragments straight into the A operand.
+    // P is exchanged through shared memory (the two warps of a row group
+    // each scored half of the tile; fp32 reads it back by plain loads).
+#pragma unroll
+    for (int nt = 0; nt < NT_S; ++nt) {
+      const int c = kh * BKW + nt * 8 + tig * 2;
+      if constexpr (kTC) {
+        *reinterpret_cast<uint32_t*>(Ps + r_lo * kLdp + c) = pack_bf16(s[nt][0], s[nt][1]);
+        *reinterpret_cast<uint32_t*>(Ps + r_hi * kLdp + c) = pack_bf16(s[nt][2], s[nt][3]);
+      } else {
+        Ps[r_lo * kLdp + c] = s[nt][0];
+        Ps[r_lo * kLdp + c + 1] = s[nt][1];
+        Ps[r_hi * kLdp + c] = s[nt][2];
+        Ps[r_hi * kLdp + c + 1] = s[nt][3];
+      }
+    }
+    __syncthreads();
+    if constexpr (kTC) {
 #pragma unroll
       for (int j = 0; j < BK / 16; ++j) {
         uint32_t a[4];
-        a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-        a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-        a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-        a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+        ldmatrix_x4(a, Ps + (rg * 16 + (lane & 15)) * kLdp + j * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int dp = 0; dp < NT_O / 2; ++dp) {
           uint32_t bf[4];
@@ -339,49 +366,17 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
         }
       }
     } else {
-      // P is exchanged through shared memory (the two warps of a row group
-      // each scored half of the tile; fp32 reads it back by plain loads).
+      for (int key = 0; key < BK; ++key) {
+        const float pa = Ps[r_lo * kLdp + key];
+        const float pb = Ps[r_hi * kLdp + key];
+        const T* vrow = Vt + key * kLds + kh * DW;
 #pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt) {
-        const int c = kh * BKW + nt * 8 + tig * 2;
-        if constexpr (kTC) {
-          *reinterpret_cast<uint32_t*>(Ps + r_lo * kLdp + c) = pack_bf16(s[nt][0], s[nt][1]);
-          *reinterpret_cast<uint32_t*>(Ps + r_hi * kLdp + c) = pack_bf16(s[nt][2], s[nt][3]);
-        } else {
-          Ps[r_lo * kLdp + c] = s[nt][0];
-          Ps[r_lo * kLdp + c + 1] = s[nt][1];
-          Ps[r_hi * kLdp + c] = s[nt][2];
-          Ps[r_hi * kLdp + c + 1] = s[nt][3];
-        }
-      }
-      __syncthreads();
-      if constexpr (kTC) {
-#pragma unroll
-        for (int j = 0; j < BK / 16; ++j) {
-          uint32_t a[4];
-          ldmatrix_x4(a, Ps + (rg * 16 + (lane & 15)) * kLdp + j * 16 + (lane >> 4) * 8);
-#pragma unroll
-          for (int dp = 0; dp < NT_O / 2; ++dp) {
-            uint32_t bf[4];
-            const int key = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-            ldmatrix_x4_trans(bf, Vt + key * kLds + kh * DW + dp * 16 + (lane >> 4) * 8);
-            mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-            mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
-          }
-        }
-      } else {
-        for (int key = 0; key < BK; ++key) {
-          const float pa = Ps[r_lo * kLdp + key];
-          const float pb = Ps[r_hi * kLdp + key];
-          const T* vrow = Vt + key * kLds + kh * DW;
-#pragma unroll
-          for (int nt = 0; nt < NT_O; ++nt) {
-            const float v0 = vrow[nt * 8 + tig * 2], v1 = vrow[nt * 8 + tig * 2 + 1];
-            o[nt][0] += pa * v0;
-            o[nt][1] += pa * v1;
-            o[nt][2] += pb * v0;
-            o[nt][3] += pb * v1;
-          }
+        for (int nt = 0; nt < NT_O; ++nt) {
+          const float v0 = vrow[nt * 8 + tig * 2], v1 = vrow[nt * 8 + tig * 2 + 1];
+          o[nt][0] += pa * v0;
+          o[nt][1] += pa * v1;
+          o[nt][2] += pb * v0;
+          o[nt][3] += pb * v1;
         }
       }
     }
@@ -433,6 +428,409 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
   }
 }
 
+// ---- K1 on Hopper: TMA, wgmma, warp specialisation (bf16, d = 64 or 128) ----
+
+template <int D, int STAGES>
+struct Fa3 {
+  static constexpr int kBQ = 128, kBK = 128, kPanels = D / 64;
+  static constexpr int kPanelBytes = 128 * 128;  // 128 rows of 64 bf16
+  static constexpr int kTileBytes = kPanels * kPanelBytes;
+  static constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer warpgroup 2
+  static constexpr int kOffK = kTileBytes;  // after Q
+  static constexpr int kOffV = kOffK + STAGES * kTileBytes;
+  static constexpr int kOffBias = kOffV + STAGES * kTileBytes;
+  static constexpr int kOffBar = kOffBias + STAGES * kBK * 4;
+  static constexpr int kBars = 1 + 3 * STAGES;
+  // setmaxnreg: the producer warpgroup gives its registers to the consumers
+  // (384 threads x 168 at launch = 128 x kProducerRegs + 256 x kConsumerRegs)
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = 240;
+  static constexpr size_t kSmem = kOffBar + kBars * 8 + 1024;  // + slack to align the base
+  static_assert(D == 64 || D == 128, "head dim");
+};
+
+struct Fa3Params {
+  CUtensorMap tq, tk, tv;  // 4-D (d, then the three outer dims by stride)
+  int oq[3], ok[3], ov[3];  // logical dim of map dims 1..3: 0 row, 1 head, 2 batch
+  const float* bias;
+  long long bias_sb;
+  void* o;
+  long long o_sb, o_sh, o_sl;
+  int H, Lq, Lk;
+  float scale_log2;  // scale * log2(e)
+};
+
+__device__ __forceinline__ int pick(int which, int row, int h, int b) {
+  return which == 0 ? row : (which == 1 ? h : b);
+}
+__device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* map, const int (&ord)[3],
+                                         uint64_t* bar, int d0, int row, int h, int b) {
+  sm90::tma_load_4d(dst, map, bar, d0, pick(ord[0], row, h, b), pick(ord[1], row, h, b),
+                    pick(ord[2], row, h, b));
+}
+
+// S (64 rows x N keys) = Q K^T, both K-major with the 128-byte swizzle.
+template <int D, int N>
+__device__ __forceinline__ void fa3_qk(float (&s)[N / 2], uint32_t q_base, uint32_t k_base) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * 16384 + (kk % 4) * 32;
+    const uint64_t da = sm90::desc_kmajor_sw128(q_base + off);
+    const uint64_t db = sm90::desc_kmajor_sw128(k_base + off);
+    if constexpr (N == 128)
+      sm90::wgmma_ss_m64n128(s, da, db, kk > 0);
+    else
+      sm90::wgmma_ss_m64n64(s, da, db, kk > 0);
+  }
+  sm90::wgmma_commit();
+}
+
+// O (64 rows x D) += P V: P from registers, V (N keys x D) MN-major.
+template <int D, int N>
+__device__ __forceinline__ void fa3_pv(float (&o)[D / 2], const uint32_t (&pa)[N / 16][4],
+                                       uint32_t v_base) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const uint64_t db = sm90::desc_mnmajor_sw128(v_base + kk * 2048, 16384);
+    if constexpr (D == 64)
+      sm90::wgmma_rs_m64n64<1>(o, pa[kk], db, 1);
+    else
+      sm90::wgmma_rs_m64n128<1>(o, pa[kk], db, 1);
+  }
+  sm90::wgmma_commit();
+}
+
+// One tile's online softmax in the log2 domain, in place on the S fragment;
+// returns the rescale factors of the old sums.
+//   kBias: t = s * scale*log2(e) + bias*log2(e) (one FFMA; keys past Lk carry
+//     MASK_VALUE as their staged bias and a zero K row, so t is exactly
+//     MASK_VALUE), p = 2^(t - m).
+//   no bias (scale > 0): the max is taken on the raw scores and p =
+//     2^(s * scale*log2(e) - m) is one FFMA; keys past Lk (valid < 128 on the
+//     last tile) are set to -inf, so p = 0 for them as for MASK_VALUE.
+template <bool kBias, int N>
+__device__ __forceinline__ void fa3_softmax(float (&s)[N / 2], const float* bias, float sl2, int tig,
+                                            int valid, float& m_lo, float& m_hi, float& l_lo,
+                                            float& l_hi, float& a_lo, float& a_hi) {
+  float mx_lo, mx_hi;
+  if constexpr (kBias) {
+    mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const float2 bv = *reinterpret_cast<const float2*>(bias + jj * 8 + tig * 2);
+      s[4 * jj + 0] = fmaf(s[4 * jj + 0], sl2, bv.x);
+      s[4 * jj + 1] = fmaf(s[4 * jj + 1], sl2, bv.y);
+      s[4 * jj + 2] = fmaf(s[4 * jj + 2], sl2, bv.x);
+      s[4 * jj + 3] = fmaf(s[4 * jj + 3], sl2, bv.y);
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj + 0], s[4 * jj + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+  } else {
+    if (valid < N) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i)
+        if ((i / 4) * 8 + tig * 2 + (i & 1) >= valid) s[i] = -INFINITY;
+    }
+    mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj + 0], s[4 * jj + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  if constexpr (!kBias) {
+    mx_lo = fmaxf(m_lo, mx_lo * sl2);
+    mx_hi = fmaxf(m_hi, mx_hi * sl2);
+  }
+  a_lo = sm90::ex2(m_lo - mx_lo);  // m = -inf before the first tile: 2^-inf = 0
+  a_hi = sm90::ex2(m_hi - mx_hi);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  float sum_lo = 0.f, sum_hi = 0.f;
+  if constexpr (kBias) {
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      s[4 * jj + 0] = sm90::ex2(s[4 * jj + 0] - mx_lo);
+      s[4 * jj + 1] = sm90::ex2(s[4 * jj + 1] - mx_lo);
+      s[4 * jj + 2] = sm90::ex2(s[4 * jj + 2] - mx_hi);
+      s[4 * jj + 3] = sm90::ex2(s[4 * jj + 3] - mx_hi);
+      sum_lo += s[4 * jj + 0] + s[4 * jj + 1];
+      sum_hi += s[4 * jj + 2] + s[4 * jj + 3];
+    }
+  } else {
+    const float nm_lo = -mx_lo, nm_hi = -mx_hi;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      s[4 * jj + 0] = sm90::ex2(fmaf(s[4 * jj + 0], sl2, nm_lo));
+      s[4 * jj + 1] = sm90::ex2(fmaf(s[4 * jj + 1], sl2, nm_lo));
+      s[4 * jj + 2] = sm90::ex2(fmaf(s[4 * jj + 2], sl2, nm_hi));
+      s[4 * jj + 3] = sm90::ex2(fmaf(s[4 * jj + 3], sl2, nm_hi));
+      sum_lo += s[4 * jj + 0] + s[4 * jj + 1];
+      sum_hi += s[4 * jj + 2] + s[4 * jj + 3];
+    }
+  }
+  l_lo = l_lo * a_lo + sum_lo;  // per-thread partial; reduced after the loop
+  l_hi = l_hi * a_hi + sum_hi;
+}
+
+// P (fp32 S fragment) -> bf16 A fragments of the PV product, one per 16 keys.
+template <int N>
+__device__ __forceinline__ void fa3_pack(const float (&s)[N / 2], uint32_t (&pa)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    pa[kk][0] = sm90::pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = sm90::pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = sm90::pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = sm90::pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D, int STAGES, bool kBias>
+__global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__ Fa3Params p) {
+  using S = Fa3<D, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* bias_s = reinterpret_cast<float*>(smem + S::kOffBias);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kOffBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;  // K tile and its bias
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* kv_empty = bars + 1 + 2 * STAGES;
+
+  const int q0 = blockIdx.x * S::kBQ;
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int nk = (p.Lk + S::kBK - 1) / S::kBK;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(k_full + s, 32);
+      sm90::mbar_init(v_full + s, 1);
+      sm90::mbar_init(kv_empty + s, 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: one warp keeps the TMA loads in flight ----
+    sm90::setmaxnreg_dec<S::kProducerRegs>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(q_full, S::kTileBytes);
+        for (int pn = 0; pn < S::kPanels; ++pn)
+          tma_rows(smem + pn * S::kPanelBytes, &p.tq, p.oq, q_full, pn * 64, q0, h, b);
+      }
+      const float* bias_g = p.bias ? p.bias + b * p.bias_sb : nullptr;
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % STAGES;
+        sm90::mbar_wait(kv_empty + st, ((j / STAGES) & 1) ^ 1);
+        if constexpr (kBias) {
+          float* bs = bias_s + st * S::kBK;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j * S::kBK + lane * 4 + e;
+            bs[lane * 4 + e] = key < p.Lk ? (bias_g ? bias_g[key] * kLog2e : 0.f) : kMaskValue;
+          }
+        }
+        if (lane == 0) {
+          unsigned char* kt = smem + S::kOffK + st * S::kTileBytes;
+          unsigned char* vt = smem + S::kOffV + st * S::kTileBytes;
+          sm90::mbar_arrive_expect_tx(k_full + st, S::kTileBytes);
+          for (int pn = 0; pn < S::kPanels; ++pn)
+            tma_rows(kt + pn * S::kPanelBytes, &p.tk, p.ok, k_full + st, pn * 64, j * S::kBK, h, b);
+          sm90::mbar_arrive_expect_tx(v_full + st, S::kTileBytes);
+          for (int pn = 0; pn < S::kPanels; ++pn)
+            tma_rows(vt + pn * S::kPanelBytes, &p.tv, p.ov, v_full + st, pn * 64, j * S::kBK, h, b);
+        } else {
+          sm90::mbar_arrive(k_full + st);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    sm90::setmaxnreg_inc<S::kConsumerRegs>();
+    const int wg = threadIdx.x >> 7;
+    const int tw = threadIdx.x & 127;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
+    const uint32_t q_base = sm90::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t k_base = sm90::smem_u32(smem + S::kOffK);
+    const uint32_t v_base = sm90::smem_u32(smem + S::kOffV);
+    // Ping-pong: a warpgroup issues its products only after the other one
+    // has issued its own, so one warpgroup's softmax runs under the other's
+    // products.  Barrier 1 + wg is this warpgroup's turn.
+    const int bar_mine = 1 + wg, bar_other = 2 - wg;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
+
+    if (wg == 1) sm90::named_bar_arrive(1, 256);
+    sm90::mbar_wait(q_full, 0);
+
+    if constexpr (D == 64) {
+      float s[64];
+      uint32_t pa[8][4];
+      sm90::named_bar_sync(bar_mine, 256);
+      sm90::mbar_wait(k_full, 0);
+      fa3_qk<D, 128>(s, q_base, k_base);
+      sm90::named_bar_arrive(bar_other, 256);
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(s);
+      fa3_softmax<kBias, 128>(s, bias_s, p.scale_log2, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo,
+                              a_hi);
+      fa3_pack<128>(s, pa);
+
+      for (int j = 1; j < nk; ++j) {
+        const int st = j % STAGES, pst = (j - 1) % STAGES;
+        sm90::named_bar_sync(bar_mine, 256);
+        sm90::mbar_wait(k_full + st, (j / STAGES) & 1);
+        fa3_qk<D, 128>(s, q_base, k_base + st * S::kTileBytes);  // S_j ...
+        sm90::mbar_wait(v_full + pst, ((j - 1) / STAGES) & 1);
+        fa3_pv<D, 128>(o, pa, v_base + pst * S::kTileBytes);  // ... and O += P_{j-1} V_{j-1}
+        sm90::named_bar_arrive(bar_other, 256);
+        sm90::wgmma_wait<1>();  // S_j is ready; the PV product still runs
+        sm90::reg_fence(s);
+        fa3_softmax<kBias, 128>(s, bias_s + st * S::kBK, p.scale_log2, tig, p.Lk - j * S::kBK,
+                                m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+        sm90::wgmma_wait<0>();
+        sm90::reg_fence(o);
+        sm90::mbar_arrive(kv_empty + pst);
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          o[4 * jj + 0] *= a_lo;
+          o[4 * jj + 1] *= a_lo;
+          o[4 * jj + 2] *= a_hi;
+          o[4 * jj + 3] *= a_hi;
+        }
+        fa3_pack<128>(s, pa);
+      }
+      const int lst = (nk - 1) % STAGES;
+      sm90::named_bar_sync(bar_mine, 256);
+      sm90::mbar_wait(v_full + lst, ((nk - 1) / STAGES) & 1);
+      fa3_pv<D, 128>(o, pa, v_base + lst * S::kTileBytes);
+      if (wg == 0) sm90::named_bar_arrive(bar_other, 256);  // warpgroup 1's last turn
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(o);
+    } else {
+      // d = 128: S, P and O of a 128-key tile do not fit 240 registers
+      // together, so each tile runs as two 64-key halves, each QK, softmax,
+      // PV in turn (the two warpgroups still alternate their products).
+      float s[32];
+      uint32_t pa[4][4];
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % STAGES;
+        const uint32_t ph = (j / STAGES) & 1;
+        sm90::mbar_wait(k_full + st, ph);
+        sm90::mbar_wait(v_full + st, ph);
+#pragma unroll 1
+        for (int hf = 0; hf < 2; ++hf) {
+          sm90::named_bar_sync(bar_mine, 256);
+          fa3_qk<D, 64>(s, q_base, k_base + st * S::kTileBytes + hf * 8192);
+          if (wg == 0 || j + 1 < nk || hf == 0) sm90::named_bar_arrive(bar_other, 256);
+          sm90::wgmma_wait<0>();
+          sm90::reg_fence(s);
+          fa3_softmax<kBias, 64>(s, bias_s + st * S::kBK + hf * 64, p.scale_log2, tig,
+                                 p.Lk - j * S::kBK - hf * 64, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            o[4 * jj + 0] *= a_lo;
+            o[4 * jj + 1] *= a_lo;
+            o[4 * jj + 2] *= a_hi;
+            o[4 * jj + 3] *= a_hi;
+          }
+          fa3_pack<64>(s, pa);
+          fa3_pv<D, 64>(o, pa, v_base + st * S::kTileBytes + hf * 8192);
+          sm90::wgmma_wait<0>();
+          sm90::reg_fence(o);
+        }
+        sm90::mbar_arrive(kv_empty + st);
+      }
+    }
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float inv_lo = l_lo == 0.f ? 1.f : 1.f / l_lo;
+    const float inv_hi = l_hi == 0.f ? 1.f : 1.f / l_hi;
+    const int row_lo = q0 + wg * 64 + warp * 16 + g;
+    const int row_hi = row_lo + 8;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int c = jj * 8 + tig * 2;
+      if (row_lo < p.Lq)
+        *reinterpret_cast<uint32_t*>(og + row_lo * p.o_sl + c) =
+            sm90::pack_bf16(o[4 * jj + 0] * inv_lo, o[4 * jj + 1] * inv_lo);
+      if (row_hi < p.Lq)
+        *reinterpret_cast<uint32_t*>(og + row_hi * p.o_sl + c) =
+            sm90::pack_bf16(o[4 * jj + 2] * inv_hi, o[4 * jj + 3] * inv_hi);
+    }
+  }
+}
+
+// A 4-D TMA map over a (B, H, L, D) bf16 tensor with (b, h, l) strides in
+// elements: d innermost, then the three outer dims in order of stride (the
+// U-Net passes (B, L, H, D) memory viewed as (B, H, L, D)), with a box of
+// 64 x 128 rows.  ord[i] names the logical dim of map dim i + 1.
+cudaError_t attn_map(CUtensorMap* map, int (&ord)[3], const void* base, const long long* st, int B,
+                     int H, int L, int D) {
+  struct Dim {
+    uint64_t n;
+    long long stride;
+    int logical;
+    uint32_t box;
+  } dd[3] = {{uint64_t(L), st[2], 0, 128}, {uint64_t(H), st[1], 1, 1}, {uint64_t(B), st[0], 2, 1}};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && dd[j].stride < dd[j - 1].stride; --j) {
+      const Dim t = dd[j];
+      dd[j] = dd[j - 1];
+      dd[j - 1] = t;
+    }
+  const uint64_t dims[4] = {uint64_t(D), dd[0].n, dd[1].n, dd[2].n};
+  const uint64_t strides[3] = {uint64_t(dd[0].stride) * 2, uint64_t(dd[1].stride) * 2,
+                               uint64_t(dd[2].stride) * 2};
+  const uint32_t box[4] = {64, dd[0].box, dd[1].box, dd[2].box};
+  for (int i = 0; i < 3; ++i) ord[i] = dd[i].logical;
+  return sm90::make_map_bf16(map, 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int D, int STAGES, bool kBias>
+cudaError_t launch_sm90(const AttnParams& a, const long long* qs, const long long* ks,
+                        const long long* vs, int batch, cudaStream_t stream) {
+  using S = Fa3<D, STAGES>;
+  Fa3Params p;
+  cudaError_t err = attn_map(&p.tq, p.oq, a.q, qs, batch, a.H, a.Lq, D);
+  if (err == cudaSuccess) err = attn_map(&p.tk, p.ok, a.k, ks, batch, a.H, a.Lk, D);
+  if (err == cudaSuccess) err = attn_map(&p.tv, p.ov, a.v, vs, batch, a.H, a.Lk, D);
+  if (err != cudaSuccess) return err;
+  p.bias = a.bias;
+  p.bias_sb = a.bias_sb;
+  p.o = a.o;
+  p.o_sb = a.o_sb, p.o_sh = a.o_sh, p.o_sl = a.o_sl;
+  p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
+  p.scale_log2 = a.scale * kLog2e;
+  auto kern = flash_fwd_sm90<D, STAGES, kBias>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + S::kBQ - 1) / S::kBQ, batch * a.H);
+  kern<<<grid, S::kThreads, S::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, int BQ, int BK, int KSPLIT, int STAGES>
 cudaError_t launch(const AttnParams& p, int batch, cudaStream_t stream) {
   using S = FlashShape<T, D, BQ, BK, KSPLIT, STAGES>;
@@ -479,8 +877,15 @@ extern "C" int sdm_flash_attention_k1(int dtype, int d, const void* q, const voi
                                       float scale, void* stream) {
   const AttnParams p = make_params(q, k, v, bias, o, qs, ks, vs, os, bias_sb, H, Lq, Lk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 64) return launch<__nv_bfloat16, 64, 64, 64, 1, 2>(p, B, s);
-  if (dtype == 1 && d == 128) return launch<__nv_bfloat16, 128, 64, 64, 1, 2>(p, B, s);
+  // Without a bias (and with a positive scale) K1 takes the max on the raw
+  // scores and saves one fp32 operation per score.
+  const bool biased = bias != nullptr || !(scale > 0.f);
+  if (dtype == 1 && d == 64)
+    return biased ? launch_sm90<64, 3, true>(p, qs, ks, vs, B, s)
+                  : launch_sm90<64, 3, false>(p, qs, ks, vs, B, s);
+  if (dtype == 1 && d == 128)
+    return biased ? launch_sm90<128, 2, true>(p, qs, ks, vs, B, s)
+                  : launch_sm90<128, 2, false>(p, qs, ks, vs, B, s);
   if (dtype == 0 && d == 64) return launch<float, 64, 64, 64, 1, 2>(p, B, s);
   if (dtype == 0 && d == 128) return launch<float, 128, 64, 64, 1, 2>(p, B, s);
   return int(cudaErrorInvalidValue);

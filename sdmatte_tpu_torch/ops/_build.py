@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` beside the package, where
-the hash covers the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  Nothing is built when the package is
+the hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  Nothing is built when the package is
 imported: a :class:`Kernel` compiles its library on its first launch, and
 :func:`build` compiles every stale library at once, one ``nvcc`` process per
 source, all started together.
@@ -45,6 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -35,9 +35,9 @@ K4 = Kernel("conv3x3_int8", "conv3x3_i8", "sdm_conv3x3_i8",
             replaces="sdmatte_tpu/ops/conv3x3.py:336 (_kernel_i8)")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# input channels per chunk of the kernel (ConvShape<T>::BKC in the source;
-# Cin must be a multiple of it)
-CIN_MULTIPLE = {torch.float32: 16, torch.bfloat16: 32}
+# input channels per chunk of the kernel (h90::BKC for bf16 and
+# ConvShape<float>::BKC for fp32 in the source; Cin must be a multiple of it)
+CIN_MULTIPLE = {torch.float32: 16, torch.bfloat16: 64}
 
 
 def conv3x3_plain(x, w, b=None, *, affine=None, residual=None):
@@ -54,6 +54,14 @@ def conv3x3_plain(x, w, b=None, *, affine=None, residual=None):
     if residual is not None:
         y = y + residual.float()
     return y.to(x.dtype)
+
+
+def _aligned16(t):
+    """t, or a copy of it in the same memory format when its data does not
+    start on a 16-byte boundary (a view at an odd offset)."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.preserve_format)
 
 
 def conv3x3(x, w, b=None, *, affine=None, residual=None):
@@ -92,6 +100,9 @@ def conv3x3(x, w, b=None, *, affine=None, residual=None):
                                  "(B, Cin) fp32 tensors")
     w_nhwc = w.permute(0, 2, 3, 1).contiguous()
     bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
+    # the bf16 kernel reads x and w by TMA and bias and residual in 16-byte
+    # vectors, all from their base addresses
+    x, bias, residual = (_aligned16(t) for t in (x, bias, residual))
     y = torch.empty((bsz, cout, h, wd), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     K3.launch(_DTYPES[x.dtype], ptr(x), ptr(w_nhwc), ptr(bias), ptr(a), ptr(d),

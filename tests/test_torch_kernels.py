@@ -209,6 +209,27 @@ def test_k1_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("shape", [(1, 5, 1000, 777, 64), (2, 3, 130, 4096, 128),
+                                   (2, 2, 300, 257, 64)])
+def test_k1_tile_edges_on_transposed_views(cuda, shape, biased):
+    """bf16 K1 at its 128-row and 128-key tiles' ragged edges (a last key
+    tile of one key at Lk = 257), with q, k and v as the U-Net passes them:
+    (B, L, H, D) memory viewed as (B, H, L, D).  With a bias, the last batch's
+    keys all carry -10000."""
+    b, h, lq, lk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=cuda).bfloat16().transpose(1, 2)
+               for n in (lq, lk, lk))
+    bias = None
+    if biased:
+        bias = (torch.rand(b, lk, generator=g, device=cuda) < 0.5).float() * -10000.0
+        bias[-1] = -10000.0
+    _close_attn(flash_attention(q, k, v, scale=d ** -0.5, bias=bias),
+                attention_plain(q, k, v, scale=d ** -0.5, bias=bias))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 1, 1024, 1024, 512), (1, 1, 300, 170, 512)])
 def test_k2_matches_plain(cuda, dtype, shape):
@@ -237,6 +258,28 @@ def test_k3_matches_plain(cuda, dtype, shape, gn, res):
     tol = (3e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     _close(conv3x3(x, wt, bias, affine=affine, residual=r),
            conv3x3_plain(x, wt, bias, affine=affine, residual=r), *tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gn,res", [(False, False), (True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("shape", [(1, 100, 75, 128, 128), (1, 50, 37, 64, 320),
+                                   (2, 9, 130, 128, 100)])
+def test_k3_bf16_tile_edges(cuda, shape, gn, res):
+    """bf16 K3 at its 4 x 64-pixel, 128-channel tile's edges: W not a
+    multiple of 64, Cout not a multiple of 128 (and 100, not of 8), Cin at
+    the 64-channel chunk, every fusion."""
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cl = torch.channels_last
+    x = torch.randn(b, cin, h, w, generator=g, device=cuda).bfloat16().contiguous(memory_format=cl)
+    wt = (torch.randn(cout, cin, 3, 3, generator=g, device=cuda) / (9 * cin) ** 0.5).bfloat16()
+    bias = torch.randn(cout, generator=g, device=cuda) * 0.1
+    affine = (torch.rand(b, cin, generator=g, device=cuda) + 0.5,
+              torch.rand(b, cin, generator=g, device=cuda) - 0.5) if gn else None
+    r = torch.randn(b, cout, h, w, generator=g, device=cuda).bfloat16().contiguous(
+        memory_format=cl) if res else None
+    _close(conv3x3(x, wt, bias, affine=affine, residual=r),
+           conv3x3_plain(x, wt, bias, affine=affine, residual=r), 2e-2, 2e-2)
 
 
 # K4: every int8 conv class of the vae_int8 path, at small spatial sizes
