@@ -6,12 +6,15 @@
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card's name and power limit, torch and CUDA versions; TF32 off
   2. build the hand kernels from csrc/ (one nvcc per source, in parallel);
-     per source the registers, spills, wgmma serialization warnings and the
-     HGMMA / UTMALDG count of its SASS (K1 and K3 must have both and no
-     spill, or the run fails before its result lines)
+     per source the registers, spills and wgmma serialization warnings, and
+     per kernel function the HGMMA / IGMMA (wgmma on bf16 / int8) and
+     UTMALDG (TMA load) counts of its SASS.  Every main-path instantiation
+     of K1-K4 must have its wgmma and TMA instructions and no spill, or the
+     run fails before its result lines
   3. hold each kernel against its plain version at every main-path shape
      class, at shapes ragged for its tiles, and in fp32; the channel-split
-     conv wrapper against the direct conv
+     conv wrapper against the direct conv; for each int8 conv the kernel of
+     csrc/conv3x3_i8.cu it is routed to is printed
   4. time each kernel, its plain version and the one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
      the least time the card could take (bytes at 3.35 TB/s, or operations
@@ -39,6 +42,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -125,7 +129,10 @@ DOWN_PAD = ((0, 1), (0, 1))   # diffusers Downsample2D's padding at stride 2
 # the JAX bar means what it says.
 TOL = {"attn_bf16": 2e-2, "attn_fp32": (2e-5, 2e-5),
        "conv_bf16": (2e-2, 2e-2), "conv_fp32": (3e-5, 1e-4),
-       "csplit_fp32": (5e-5, 1e-4), "int8_fp32": (1e-3, 1e-6)}
+       "csplit_fp32": (5e-5, 1e-4),
+       # K4: the int32 sums and the fp32 epilogue are exact and a bf16 output
+       # is the same one rounding, so the kernel equals its plain version
+       "int8_exact": (0.0, 0.0)}
 
 
 def log(*a):
@@ -139,14 +146,43 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "USETMAXREG")
+# kernel function (a substring of its mangled name) -> what its SASS must hold;
+# none of them may spill.  These are the main paths' instantiations: K1, K2
+# (bf16 d = 512), K3, and K4 at stride 1 (Cin a multiple of 16; and Cin 3 and
+# 4 with the taps folded into K, which gathers its rows without TMA).
+SASS_REQUIRED = {
+    "flash_attention": {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
+                        "flash_fwd_d512_sm90": ("HGMMA", "UTMALDG")},
+    "conv3x3": {"conv3x3_sm90": ("HGMMA", "UTMALDG")},
+    "conv3x3_i8": {"conv3x3_i8_sm90": ("IGMMA", "UTMALDG"),
+                   "conv3x3_i8_fold": ("IGMMA",)},
+}
+
+
 def sass_counts(lib) -> dict:
-    """HGMMA (wgmma), UTMALDG (TMA load) and USETMAXREG instructions in a
-    built library's SASS (cuobjdump, beside nvcc)."""
+    """Per kernel function of a built library, the wgmma (HGMMA on bf16,
+    IGMMA on int8), TMA load (UTMALDG) and USETMAXREG instructions in its
+    SASS (cuobjdump, beside nvcc): {mangled name: {op: count}}."""
     from sdmatte_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "USETMAXREG")}
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        counts[name.strip()] = {op: body.count(op) for op in SASS_OPS}
+    return counts
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and template arguments out of its mangled name, as
+    nvcc writes it for a function in an anonymous namespace:
+    ..._cu_<8 hex digits><length><name>I<arguments>EEv<parameters>."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled[:60]
+    return mangled[m.end():].split("Ev")[0][:60]
 
 
 def median_ms(torch, fn, reps=5, warm=2):
@@ -236,6 +272,15 @@ class Smoke:
              torch.float32, "attn_fp32"),
             ("flash_attention_k2", "ragged 80^2 (640 px)", (2, 1, 6400, 6400, 512), False,
              torch.bfloat16, "attn_bf16"),
+            # ragged for K2's 64-row and 64-key tiles and for the 32-key
+            # halves its two warpgroups score: Lk = 170 leaves the last
+            # tile's second half 10 keys, Lk = 65 one key in the first half
+            ("flash_attention_k2", "ragged 130x170", (1, 1, 130, 170, 512), False,
+             torch.bfloat16, "attn_bf16"),
+            ("flash_attention_k2", "ragged 200x1000 biased", (2, 1, 200, 1000, 512), True,
+             torch.bfloat16, "attn_bf16"),
+            ("flash_attention_k2", "ragged 64x65 biased", (2, 1, 64, 65, 512), True,
+             torch.bfloat16, "attn_bf16"),
             ("flash_attention_k2", "fp32 1024 tokens", (2, 1, 1024, 1024, 512), False,
              torch.float32, "attn_fp32"),
             ("flash_attention_k2", "fp32 ragged 300x170 biased", (1, 1, 300, 170, 512), True,
@@ -248,6 +293,14 @@ class Smoke:
             ref = attention_plain(q, k, v, scale=scale, bias=bias)
             self.check(name, f"{label} {tuple(shape)}", got, ref, tol)
             del q, k, v, got, ref
+        # K2 on q, k and v as (B, L, H, D) memory viewed as (B, H, L, D)
+        q, k, v = (self.randn(2, n, 2, 512, dtype=torch.bfloat16).transpose(1, 2)
+                   for n in (1000, 777, 777))
+        bias = (self.rand(2, 777) < 0.5).float() * -10000.0
+        got = flash_attention(q, k, v, scale=512 ** -0.5, bias=bias)
+        torch.cuda.synchronize()
+        self.check("flash_attention_k2", "transposed view 1000x777 biased (2, 2, 1000, 777, 512)",
+                   got, attention_plain(q, k, v, scale=512 ** -0.5, bias=bias), "attn_bf16")
 
     # -- conv ------------------------------------------------------------
     def conv_inputs(self, shape, gn, res, dtype):
@@ -318,27 +371,44 @@ class Smoke:
         return xq, wq, scale, bias, dict(stride=stride, padding=1 if stride == 1 else DOWN_PAD)
 
     def check_int8_conv(self):
-        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3_int8, conv3x3_int8_plain
+        from sdmatte_tpu_torch.ops.conv3x3 import (conv3x3_int8, conv3x3_int8_plain,
+                                                   int8_route)
         torch = self.torch
-        cases = [(label, shape, stride, torch.bfloat16, "conv_bf16")
+        cases = [(label, shape, stride, torch.bfloat16, "int8_exact")
                  for label, shape, stride, _ in INT8_SHAPES]
+        # every kernel of csrc/conv3x3_i8.cu at shapes ragged for its tiles
+        # (4 x 64 pixels, 128 or 8 output channels, 128-channel chunks)
         cases += [
-            ("ragged 100x75 128->128", (1, 100, 75, 128, 128), 1, torch.bfloat16, "conv_bf16"),
+            ("ragged 100x75 128->128", (1, 100, 75, 128, 128), 1, torch.bfloat16, "int8_exact"),
             ("fp32 ragged 100x75 128->128", (1, 100, 75, 128, 128), 1, torch.float32,
-             "int8_fp32"),
+             "int8_exact"),
+            ("fp32 ragged 9x130 128->100", (2, 9, 130, 128, 100), 1, torch.float32, "int8_exact"),
+            ("ragged 9x130 128->100", (2, 9, 130, 128, 100), 1, torch.bfloat16, "int8_exact"),
+            ("fp32 Cin 64 20x70", (1, 20, 70, 64, 128), 1, torch.float32, "int8_exact"),
+            ("fp32 Cin 320 13x66 ->136", (1, 13, 66, 320, 136), 1, torch.float32, "int8_exact"),
             ("fp32 ragged down 100x75 256", (1, 100, 75, 256, 256), 2, torch.float32,
-             "int8_fp32"),
-            ("fp32 conv_in 256^2 3->128", (2, 256, 256, 3, 128), 1, torch.float32, "int8_fp32"),
+             "int8_exact"),
+            ("ragged down 33x27 128", (1, 33, 27, 128, 128), 2, torch.bfloat16, "int8_exact"),
+            ("fp32 conv_in 256^2 3->128", (2, 256, 256, 3, 128), 1, torch.float32, "int8_exact"),
+            ("fp32 conv_in 37x70 4->130", (1, 37, 70, 4, 130), 1, torch.float32, "int8_exact"),
             ("fp32 conv_out 256^2 128->3", (1, 256, 256, 128, 3), 1, torch.float32,
-             "int8_fp32"),
+             "int8_exact"),
+            ("fp32 conv_out 5x200 512->8", (1, 5, 200, 512, 8), 1, torch.float32, "int8_exact"),
+            ("fp32 Cin 20 (first design)", (1, 12, 12, 20, 24), 1, torch.float32, "int8_exact"),
         ]
+        routes = {}
         for label, shape, stride, dtype, tol in cases:
             xq, wq, scale, bias, kw = self.int8_inputs(shape, stride)
             got = conv3x3_int8(xq, wq, scale, bias, out_dtype=dtype, **kw)
             torch.cuda.synchronize()
             ref = conv3x3_int8_plain(xq, wq, scale, bias, out_dtype=dtype, **kw)
-            self.check("conv3x3_int8", f"{label} s{stride} {tuple(shape)}", got, ref, tol)
+            route = int8_route(shape[3], shape[4], stride)
+            routes.setdefault(route, []).append(label)
+            self.check("conv3x3_int8", f"{label} s{stride} {tuple(shape)} [{route}]", got, ref,
+                       tol)
             del xq, got, ref
+        for route, labels in routes.items():
+            log(f"  K4 route {route}: {len(labels)} checks ({', '.join(labels)})")
 
     # -- timing ----------------------------------------------------------
     def time_kernels(self):
@@ -394,7 +464,7 @@ class Smoke:
         rows += self.time_int8_conv()
         for name, label, shape, launches, t in rows:
             extra = "".join(f"  {key} {t[key]:.4f}" for key in ("mufu_ms", "cudnn_bf16_ms")
-                            if key in t)
+                            if key in t) + (f"  [{t['route']}]" if "route" in t else "")
             log(f"  time {name:20s} {label:24s} {str(shape):32s} x{launches}  "
                 f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
                 f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
@@ -407,7 +477,8 @@ class Smoke:
         to its multiple of 8); cuDNN's bf16 conv of the same shape is
         printed beside it."""
         import torch.nn.functional as tF
-        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3_int8, conv3x3_int8_plain
+        from sdmatte_tpu_torch.ops.conv3x3 import (conv3x3_int8, conv3x3_int8_plain,
+                                                   int8_route)
         torch = self.torch
         rows = []
         for label, shape, stride, launches in INT8_SHAPES:
@@ -440,6 +511,7 @@ class Smoke:
             nbytes = b * h * w * cin + 9 * cin * cout + 2 * b * ho * wo * cout + 8 * cout
             t["flops"], t["bytes"] = flops, nbytes
             t["bound_ms"], t["bound_by"] = bound(flops, nbytes, INT8_OPS)
+            t["route"] = int8_route(cin, cout, stride)
             rows.append(("conv3x3_int8", label, shape + (stride,), launches, t))
             del xq
         return rows
@@ -637,7 +709,7 @@ class Smoke:
         for ms, n, key in rows:
             k = key.lower()
             group = ("hand kernels" if "flash_fwd" in k or "conv3x3_sm90" in k
-                     or "conv3x3_f32" in k or "conv3x3_i8_kernel" in k
+                     or "conv3x3_f32" in k or "conv3x3_i8" in k
                      else "cuDNN conv" if "fprop" in k or "conv" in k
                      else "GEMM" if "gemm" in k or "cutlass" in k
                      else "reductions" if "reduce" in k
@@ -691,23 +763,38 @@ def main() -> int:
     build_faults = []
     for name, r in report.items():
         lines = r["log"].splitlines()
-        spills, func = [], ""
+        spills, func = {}, ""
         for ln in lines:
             if "Function properties for" in ln:
                 func = ln.split("Function properties for")[1].strip()
             elif "spill" in ln and " 0 bytes spill" not in ln:
-                spills.append(f"{func}: {ln.strip()}")
+                spills[func] = ln.strip()
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines if "Used " in ln]
         serial = [ln for ln in lines if "wgmma.mma_async instructions are serialized" in ln]
-        sass = sass_counts(_build.library_path(name))
-        log(f"  {name}: registers per instantiation {regs}; spilling lines {len(spills)}; "
-            f"wgmma serialization warnings {len(serial)}; SASS {sass}")
-        for ln in spills + serial:
+        log(f"  {name}: registers per instantiation {regs}; spilling functions {len(spills)}; "
+            f"wgmma serialization warnings {len(serial)}")
+        for func, ln in spills.items():
+            log(f"    spill in {short_name(func)}: {ln[:200]}")
+        for ln in serial:
             log(f"    {ln.strip()[:240]}")
-        # K1 and K3 are built for Hopper: wgmma and TMA, and nothing spills
-        if name in ("flash_attention", "conv3x3") and (
-                spills or not sass["HGMMA"] or not sass["UTMALDG"]):
-            build_faults.append(f"{name}: spills, or no HGMMA / UTMALDG in its SASS")
+        sass = sass_counts(_build.library_path(name))
+        for func, ops in sass.items():
+            log(f"    SASS {short_name(func):44s} "
+                + "  ".join(f"{op} {n}" for op, n in ops.items()))
+        for key, needed in SASS_REQUIRED[name].items():
+            mine = {f: ops for f, ops in sass.items() if key in f}
+            if not mine:
+                build_faults.append(f"{name}: no kernel function named {key}")
+            for func, ops in mine.items():
+                missing = [op for op in needed if not ops[op]]
+                if missing or func in spills:
+                    build_faults.append(
+                        f"{short_name(func)}: " + (f"no {'/'.join(missing)} in its SASS" if missing
+                                                   else "spills"))
+        if serial:
+            build_faults.append(f"{name}: ptxas serializes wgmma instructions")
+    for fault in build_faults:
+        log(f"  BUILD FAULT {fault}")
 
     smoke = Smoke(torch)
     smoke.profile_on = "--profile" in sys.argv[1:]

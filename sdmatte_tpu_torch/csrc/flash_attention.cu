@@ -44,13 +44,37 @@
 //   halves, QK, softmax and PV in turn (the two warpgroups still overlap
 //   each other).
 //
-// K2 (d = 512, bf16 and fp32) and K1 in fp32 (the check route, not on the main
-// path) use the first design, flash_fwd: mma.sync m16n8k16 bf16 -> fp32
-// (fp32: plain FMA on the same fragment layout) and a two-stage cp.async
-// ring; one block per (query tile, batch*head), each warp owns 16 query rows,
-// and at d = 512 two warps share a row group: each scores half of the KV
-// tile, the row max and P are exchanged through shared memory, and each
-// accumulates half of d.
+// K2 in bf16 (flash_fwd_d512_sm90, the main path) is built for Hopper as well,
+// around what d = 512 forces.  It is bound by the tensor cores alone (2048
+// flops per score against one exp2), but O for 64 query rows is 64 x 512 fp32,
+// half of the SM's registers, so a CTA holds 64 rows and d is split over its
+// two warpgroups: each keeps O[:, 256 columns] (128 registers a thread).  S
+// needs all of d, so each warpgroup scores half of the 64-key tile over the
+// full d (wgmma m64n32k16, Q and K from swizzled shared memory), the row
+// maxima cross shared memory, P is written once as bf16 into a swizzled
+// K-major tile (fence.proxy.async before the async proxy reads it), and each
+// warpgroup runs O_half += P V[:, half] (m64n256k16, A = P from shared memory,
+// V MN-major).  Q, one K tile and one V tile are 64 KB each, so K and V are
+// single-buffered and staggered: K of tile j+1 is asked for when QK of tile j
+// is done and lands under its softmax and PV, V of tile j+1 when PV of tile j
+// is done and lands under QK and the softmax of tile j+1.  There is no
+// producer warp: registers go to a block in units of four warps, so a ninth
+// warp would leave each thread 168 registers, not the ~190 the consumers
+// need; thread 0 issues the TMA loads.  O is rescaled only when a row's
+// maximum moved (it rarely does after the first tiles).  The softmax is
+// K1's: log2 domain, MASK_VALUE unscaled for keys past Lk against a
+// zero-filled K row; without a bias the maximum is taken on the raw scores.
+// Measured on an H100 (PERF.md): the L2 does not bind (a cluster of two CTAs
+// sharing each K/V tile by TMA multicast ran within 5% of this kernel); the
+// serial order QK, softmax, PV inside a tile does.
+//
+// K2 in fp32 and K1 in fp32 (the check route, not on the main path) use what
+// is left of the first design, flash_fwd: plain FMA on the mma.sync fragment
+// layout and a cp.async ring, so that a kernel can be held at fp32 tolerance;
+// one block per (query tile, batch*head), each warp owns 16 query rows, and
+// at d = 512 two warps share a row group: each scores half of the KV tile,
+// the row max and P are exchanged through shared memory, and each accumulates
+// half of d.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -92,40 +116,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr bool kTensorCores = true;
-};
-template <>
-struct Cfg<float> {
-  static constexpr bool kTensorCores = false;
-};
 
 // Copies rows [row0, row0 + ROWS) of a (rows, D) tile with row stride sl into
 // shared memory with row stride LDS; rows at or past nrows are zero-filled.
@@ -169,7 +159,6 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
   constexpr int DW = D / KSPLIT;    // output columns accumulated by one warp
   constexpr int NT_S = BKW / 8;
   constexpr int NT_O = DW / 8;
-  constexpr bool kTC = Cfg<T>::kTensorCores;
   static_assert(BQ % 16 == 0 && BKW % 16 == 0 && DW % 16 == 0 && D % 16 == 0, "tile shape");
   static_assert(STAGES == 1 || STAGES == 2, "stages");
 
@@ -240,34 +229,18 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
     float s[NT_S][4];
 #pragma unroll
     for (int i = 0; i < NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    if constexpr (kTC) {
+    const T* qa = Qs + r_lo * kLds;
+    const T* qb = Qs + r_hi * kLds;
+    for (int d = 0; d < D; ++d) {
+      const float xa = qa[d], xb = qb[d];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, Qs + (rg * 16 + (lane & 15)) * kLds + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < NT_S / 2; ++np) {
-          uint32_t bf[4];
-          const int key = kh * BKW + np * 16 + (lane & 7) + ((lane >> 4) << 3);
-          ldmatrix_x4(bf, Kt + key * kLds + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], a, bf[0], bf[1]);
-          mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
-        }
-      }
-    } else {
-      const T* qa = Qs + r_lo * kLds;
-      const T* qb = Qs + r_hi * kLds;
-      for (int d = 0; d < D; ++d) {
-        const float xa = qa[d], xb = qb[d];
-#pragma unroll
-        for (int nt = 0; nt < NT_S; ++nt) {
-          const int key = kh * BKW + nt * 8 + tig * 2;
-          const float k0 = Kt[key * kLds + d], k1 = Kt[(key + 1) * kLds + d];
-          s[nt][0] += xa * k0;
-          s[nt][1] += xa * k1;
-          s[nt][2] += xb * k0;
-          s[nt][3] += xb * k1;
-        }
+      for (int nt = 0; nt < NT_S; ++nt) {
+        const int key = kh * BKW + nt * 8 + tig * 2;
+        const float k0 = Kt[key * kLds + d], k1 = Kt[(key + 1) * kLds + d];
+        s[nt][0] += xa * k0;
+        s[nt][1] += xa * k1;
+        s[nt][2] += xb * k0;
+        s[nt][3] += xb * k1;
       }
     }
 
@@ -336,48 +309,27 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
 
     // ---- O += P V ----
     // P is exchanged through shared memory (the two warps of a row group
-    // each scored half of the tile; fp32 reads it back by plain loads).
+    // each scored half of the tile) and read back by plain loads.
 #pragma unroll
     for (int nt = 0; nt < NT_S; ++nt) {
       const int c = kh * BKW + nt * 8 + tig * 2;
-      if constexpr (kTC) {
-        *reinterpret_cast<uint32_t*>(Ps + r_lo * kLdp + c) = pack_bf16(s[nt][0], s[nt][1]);
-        *reinterpret_cast<uint32_t*>(Ps + r_hi * kLdp + c) = pack_bf16(s[nt][2], s[nt][3]);
-      } else {
-        Ps[r_lo * kLdp + c] = s[nt][0];
-        Ps[r_lo * kLdp + c + 1] = s[nt][1];
-        Ps[r_hi * kLdp + c] = s[nt][2];
-        Ps[r_hi * kLdp + c + 1] = s[nt][3];
-      }
+      Ps[r_lo * kLdp + c] = s[nt][0];
+      Ps[r_lo * kLdp + c + 1] = s[nt][1];
+      Ps[r_hi * kLdp + c] = s[nt][2];
+      Ps[r_hi * kLdp + c + 1] = s[nt][3];
     }
     __syncthreads();
-    if constexpr (kTC) {
+    for (int key = 0; key < BK; ++key) {
+      const float pa = Ps[r_lo * kLdp + key];
+      const float pb = Ps[r_hi * kLdp + key];
+      const T* vrow = Vt + key * kLds + kh * DW;
 #pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        uint32_t a[4];
-        ldmatrix_x4(a, Ps + (rg * 16 + (lane & 15)) * kLdp + j * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int dp = 0; dp < NT_O / 2; ++dp) {
-          uint32_t bf[4];
-          const int key = j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4_trans(bf, Vt + key * kLds + kh * DW + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-          mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
-        }
-      }
-    } else {
-      for (int key = 0; key < BK; ++key) {
-        const float pa = Ps[r_lo * kLdp + key];
-        const float pb = Ps[r_hi * kLdp + key];
-        const T* vrow = Vt + key * kLds + kh * DW;
-#pragma unroll
-        for (int nt = 0; nt < NT_O; ++nt) {
-          const float v0 = vrow[nt * 8 + tig * 2], v1 = vrow[nt * 8 + tig * 2 + 1];
-          o[nt][0] += pa * v0;
-          o[nt][1] += pa * v1;
-          o[nt][2] += pb * v0;
-          o[nt][3] += pb * v1;
-        }
+      for (int nt = 0; nt < NT_O; ++nt) {
+        const float v0 = vrow[nt * 8 + tig * 2], v1 = vrow[nt * 8 + tig * 2 + 1];
+        o[nt][0] += pa * v0;
+        o[nt][1] += pa * v1;
+        o[nt][2] += pb * v0;
+        o[nt][3] += pb * v1;
       }
     }
     __syncthreads();  // the next iteration refills this stage and Ps
@@ -410,21 +362,12 @@ __global__ void __launch_bounds__(FlashShape<T, D, BQ, BK, KSPLIT, STAGES>::kThr
 #pragma unroll
   for (int nt = 0; nt < NT_O; ++nt) {
     const int c = kh * DW + nt * 8 + tig * 2;
-    if constexpr (kTC) {
-      if (row_lo < p.Lq)
-        *reinterpret_cast<uint32_t*>(og + row_lo * p.o_sl + c) =
-            pack_bf16(o[nt][0] * inv_lo, o[nt][1] * inv_lo);
-      if (row_hi < p.Lq)
-        *reinterpret_cast<uint32_t*>(og + row_hi * p.o_sl + c) =
-            pack_bf16(o[nt][2] * inv_hi, o[nt][3] * inv_hi);
-    } else {
-      if (row_lo < p.Lq)
-        *reinterpret_cast<float2*>(og + row_lo * p.o_sl + c) =
-            make_float2(o[nt][0] * inv_lo, o[nt][1] * inv_lo);
-      if (row_hi < p.Lq)
-        *reinterpret_cast<float2*>(og + row_hi * p.o_sl + c) =
-            make_float2(o[nt][2] * inv_hi, o[nt][3] * inv_hi);
-    }
+    if (row_lo < p.Lq)
+      *reinterpret_cast<float2*>(og + row_lo * p.o_sl + c) =
+          make_float2(o[nt][0] * inv_lo, o[nt][1] * inv_lo);
+    if (row_hi < p.Lq)
+      *reinterpret_cast<float2*>(og + row_hi * p.o_sl + c) =
+          make_float2(o[nt][2] * inv_hi, o[nt][3] * inv_hi);
   }
 }
 
@@ -458,6 +401,7 @@ struct Fa3Params {
   long long o_sb, o_sh, o_sl;
   int H, Lq, Lk;
   float scale_log2;  // scale * log2(e)
+  int panels;        // K2: 64-column panels of d (a runtime value on purpose, see its QK loop)
 };
 
 __device__ __forceinline__ int pick(int which, int row, int h, int b) {
@@ -782,18 +726,290 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
   }
 }
 
+// ---- K2 on Hopper: d = 512 in bf16, d split over two warpgroups ----------------
+
+namespace k2 {
+constexpr int kBQ = 64, kBK = 64, kD = 512, kPanels = kD / 64;
+constexpr int kPanelBytes = 64 * 128;              // 64 rows of 64 bf16, 128-byte swizzle
+constexpr int kTileBytes = kPanels * kPanelBytes;  // a Q, K or V tile: 64 KB
+constexpr int kOffK = kTileBytes, kOffV = 2 * kTileBytes, kOffP = 3 * kTileBytes;
+constexpr int kOffRed = kOffP + kPanelBytes;  // a row maximum (or sum) per warpgroup
+constexpr int kOffBar = kOffRed + 2 * kBQ * 4;
+constexpr int kBars = 5;
+constexpr size_t kSmem = kOffBar + kBars * 8 + 1024;  // + slack to align the base
+// Two warpgroups and no producer warp: O, S and the softmax state need ~190
+// registers a thread, and registers are allotted to a block in units of four
+// warps, so a ninth warp would leave every thread 168 (and the kernel
+// spilling) where eight warps leave 255.  Thread 0 issues the TMA loads.
+constexpr int kThreads = 256;
+}  // namespace k2
+
+// The wgmma reads of a buffer are complete for the whole warp once it is past
+// wgmma.wait_group, so lane 0 releases the buffer for it.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  if (lane == 0) sm90::mbar_arrive(bar);
+}
+
+// One K or V tile: eight 64-column panels onto one barrier.
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          const int (&ord)[3], uint64_t* bar, int row, int h,
+                                          int b) {
+  using namespace k2;
+  sm90::mbar_arrive_expect_tx(bar, kTileBytes);
+  for (int pn = 0; pn < kPanels; ++pn)
+    tma_rows(dst + pn * kPanelBytes, map, ord, bar, pn * 64, row, h, b);
+}
+
+// One CTA: 64 query rows against all keys, in tiles of 64.  Both warpgroups
+// work on the same rows: warpgroup w scores keys 32w..32w+31 of the tile over
+// all of d and accumulates O[:, 256w..256w+255].
+template <bool kBias>
+__global__ void __launch_bounds__(k2::kThreads, 1)
+    flash_fwd_d512_sm90(const __grid_constant__ Fa3Params p) {
+  using namespace k2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(smem + kOffRed);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = bars + 2;
+  uint64_t* v_full = bars + 3;
+  uint64_t* v_empty = bars + 4;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int nk = (p.Lk + kBK - 1) / kBK;
+  const bool loader = threadIdx.x == 0;
+
+  if (loader) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(k_full, 1);
+    sm90::mbar_init(k_empty, 8);  // lane 0 of each warp
+    sm90::mbar_init(v_full, 1);
+    sm90::mbar_init(v_empty, 8);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int tw = threadIdx.x & 127;
+  const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+  const uint32_t q_base = sm90::smem_u32(smem);
+  // this warpgroup's 32 keys of each K panel, and its 4 panels (256 columns) of V
+  const uint32_t k_base = sm90::smem_u32(smem + kOffK) + wg * 32 * 128;
+  const uint32_t v_base = sm90::smem_u32(smem + kOffV) + wg * 4 * kPanelBytes;
+  const uint32_t p_base = sm90::smem_u32(smem + kOffP);
+  unsigned char* p_lo = smem + kOffP + r_lo * 128 + tig * 4;
+  unsigned char* p_hi = p_lo + 8 * 128;
+  const uint64_t dq0 = sm90::desc_kmajor_sw128(q_base), dk0 = sm90::desc_kmajor_sw128(k_base);
+  const float sl2 = p.scale_log2;
+  const float* bias_g = p.bias ? p.bias + b * p.bias_sb : nullptr;
+
+  if (loader) {
+    sm90::mbar_arrive_expect_tx(q_full, kTileBytes);
+    for (int pn = 0; pn < kPanels; ++pn)
+      tma_rows(smem + pn * kPanelBytes, &p.tq, p.oq, q_full, pn * 64, q0, h, b);
+    load_tile(smem + kOffK, &p.tk, p.ok, k_full, 0, h, b);
+    load_tile(smem + kOffV, &p.tv, p.ov, v_full, 0, h, b);
+  }
+  __syncwarp();
+
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  sm90::mbar_wait(q_full, 0);
+  for (int j = 0; j < nk; ++j) {
+    const uint32_t ph = j & 1;
+    // this thread's keys' bias, times log2(e); MASK_VALUE, unscaled, past Lk
+    float bv[8];
+    if constexpr (kBias) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int key = j * kBK + wg * 32 + (i / 2) * 8 + tig * 2 + (i & 1);
+        bv[i] = key < p.Lk ? (bias_g ? __ldg(bias_g + key) * kLog2e : 0.f) : kMaskValue;
+      }
+    }
+
+    // ---- S = Q K^T: 64 rows x this warpgroup's 32 keys, over all of d ----
+    float s[16];
+    sm90::mbar_wait(k_full, ph);
+    sm90::wgmma_fence();
+    // The descriptors are stepped (the start address is the low field, in
+    // 16-byte units) inside a rolled loop over the panels: unrolled, the
+    // compiler keeps all 64 of them in registers across the key loop.  The
+    // trip count comes from the parameters although it is always kPanels:
+    // with a constant one ptxas schedules the loop so that the kernel ran
+    // 3.65 ms where this form ran 2.71 ms (2 x 16384 x 16384 x 512 on an H100).
+    uint64_t dq = dq0, dk = dk0;
+#pragma unroll 1
+    for (int pn = 0; pn < p.panels; ++pn) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        sm90::wgmma_ss_m64n32(s, dq + ks * 2, dk + ks * 2, (pn | ks) != 0);
+      dq += kPanelBytes >> 4;
+      dk += kPanelBytes >> 4;
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(s);
+    release(k_empty, lane);
+
+    // ---- the tile's row maximum, over both warpgroups' keys ----
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+    if constexpr (kBias) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        s[4 * jj + 0] = fmaf(s[4 * jj + 0], sl2, bv[2 * jj]);
+        s[4 * jj + 1] = fmaf(s[4 * jj + 1], sl2, bv[2 * jj + 1]);
+        s[4 * jj + 2] = fmaf(s[4 * jj + 2], sl2, bv[2 * jj]);
+        s[4 * jj + 3] = fmaf(s[4 * jj + 3], sl2, bv[2 * jj + 1]);
+      }
+    } else {
+      const int valid = p.Lk - j * kBK - wg * 32;  // this half's keys inside Lk
+      if (valid < 32) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if ((i / 4) * 8 + tig * 2 + (i & 1) >= valid) s[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj + 0], s[4 * jj + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    if (tig == 0) {
+      red[wg * kBQ + r_lo] = mx_lo;
+      red[wg * kBQ + r_hi] = mx_hi;
+    }
+    __syncthreads();
+    // every warp has released K: the next K tile lands under the softmax and
+    // the PV product
+    if (loader && j + 1 < nk) {
+      sm90::mbar_wait(k_empty, ph);
+      load_tile(smem + kOffK, &p.tk, p.ok, k_full, (j + 1) * kBK, h, b);
+    }
+    __syncwarp();
+    mx_lo = fmaxf(mx_lo, red[(wg ^ 1) * kBQ + r_lo]);
+    mx_hi = fmaxf(mx_hi, red[(wg ^ 1) * kBQ + r_hi]);
+    if constexpr (!kBias) {  // raw scores so far (scale > 0)
+      mx_lo *= sl2;
+      mx_hi *= sl2;
+    }
+    mx_lo = fmaxf(m_lo, mx_lo);  // finite: key 0 of the first tile is inside Lk
+    mx_hi = fmaxf(m_hi, mx_hi);
+    const float a_lo = sm90::ex2(m_lo - mx_lo);  // m = -inf before the first tile: 2^-inf = 0
+    const float a_hi = sm90::ex2(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+
+    // ---- P = 2^(t - m), its row sums, and P as bf16 into the K-major tile ----
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      if constexpr (kBias) {
+        s[4 * jj + 0] = sm90::ex2(s[4 * jj + 0] - mx_lo);
+        s[4 * jj + 1] = sm90::ex2(s[4 * jj + 1] - mx_lo);
+        s[4 * jj + 2] = sm90::ex2(s[4 * jj + 2] - mx_hi);
+        s[4 * jj + 3] = sm90::ex2(s[4 * jj + 3] - mx_hi);
+      } else {
+        s[4 * jj + 0] = sm90::ex2(fmaf(s[4 * jj + 0], sl2, -mx_lo));
+        s[4 * jj + 1] = sm90::ex2(fmaf(s[4 * jj + 1], sl2, -mx_lo));
+        s[4 * jj + 2] = sm90::ex2(fmaf(s[4 * jj + 2], sl2, -mx_hi));
+        s[4 * jj + 3] = sm90::ex2(fmaf(s[4 * jj + 3], sl2, -mx_hi));
+      }
+      sum_lo += s[4 * jj + 0] + s[4 * jj + 1];
+      sum_hi += s[4 * jj + 2] + s[4 * jj + 3];
+      // row r's 16-byte chunk c sits at chunk c ^ (r & 7) (128-byte swizzle); r & 7 = g
+      const int chunk = ((wg * 4 + jj) ^ g) << 4;
+      *reinterpret_cast<uint32_t*>(p_lo + chunk) = sm90::pack_bf16(s[4 * jj + 0], s[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(p_hi + chunk) = sm90::pack_bf16(s[4 * jj + 2], s[4 * jj + 3]);
+    }
+    l_lo = l_lo * a_lo + sum_lo;  // per-thread partial; reduced after the loop
+    l_hi = l_hi * a_hi + sum_hi;
+    sm90::fence_proxy_async();  // the generic writes of P, before wgmma reads them
+    // O is rescaled only where a row's maximum moved
+    if (__any_sync(0xffffffffu, a_lo != 1.f || a_hi != 1.f)) {
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) {
+        o[4 * jj + 0] *= a_lo;
+        o[4 * jj + 1] *= a_lo;
+        o[4 * jj + 2] *= a_hi;
+        o[4 * jj + 3] *= a_hi;
+      }
+    }
+    __syncthreads();  // both halves of P are written
+
+    // ---- O[:, this warpgroup's 256 columns] += P V ----
+    sm90::mbar_wait(v_full, ph);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks)
+      sm90::wgmma_ss_m64n256_tb(o, sm90::desc_kmajor_sw128(p_base + ks * 32),
+                                sm90::desc_mnmajor_sw128(v_base + ks * 2048, kPanelBytes), 1);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(o);
+    release(v_empty, lane);
+    // the next V tile lands under QK and the softmax of the next tile
+    if (loader && j + 1 < nk) {
+      sm90::mbar_wait(v_empty, ph);
+      load_tile(smem + kOffV, &p.tv, p.ov, v_full, (j + 1) * kBK, h, b);
+    }
+    __syncwarp();
+  }
+
+  // ---- the row sums over both warpgroups' keys, normalise, store ----
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  if (tig == 0) {
+    red[wg * kBQ + r_lo] = l_lo;
+    red[wg * kBQ + r_hi] = l_hi;
+  }
+  __syncthreads();
+  l_lo = red[r_lo] + red[kBQ + r_lo];
+  l_hi = red[r_hi] + red[kBQ + r_hi];
+  const float inv_lo = l_lo == 0.f ? 1.f : 1.f / l_lo;
+  const float inv_hi = l_hi == 0.f ? 1.f : 1.f / l_hi;
+  const int row_lo = q0 + r_lo, row_hi = q0 + r_hi;
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh + wg * 256;
+#pragma unroll
+  for (int jj = 0; jj < 32; ++jj) {
+    const int c = jj * 8 + tig * 2;
+    if (row_lo < p.Lq)
+      *reinterpret_cast<uint32_t*>(og + row_lo * p.o_sl + c) =
+          sm90::pack_bf16(o[4 * jj + 0] * inv_lo, o[4 * jj + 1] * inv_lo);
+    if (row_hi < p.Lq)
+      *reinterpret_cast<uint32_t*>(og + row_hi * p.o_sl + c) =
+          sm90::pack_bf16(o[4 * jj + 2] * inv_hi, o[4 * jj + 3] * inv_hi);
+  }
+}
+
 // A 4-D TMA map over a (B, H, L, D) bf16 tensor with (b, h, l) strides in
 // elements: d innermost, then the three outer dims in order of stride (the
 // U-Net passes (B, L, H, D) memory viewed as (B, H, L, D)), with a box of
-// 64 x 128 rows.  ord[i] names the logical dim of map dim i + 1.
+// 64 x `rows` rows.  ord[i] names the logical dim of map dim i + 1.
 cudaError_t attn_map(CUtensorMap* map, int (&ord)[3], const void* base, const long long* st, int B,
-                     int H, int L, int D) {
+                     int H, int L, int D, uint32_t rows = 128) {
   struct Dim {
     uint64_t n;
     long long stride;
     int logical;
     uint32_t box;
-  } dd[3] = {{uint64_t(L), st[2], 0, 128}, {uint64_t(H), st[1], 1, 1}, {uint64_t(B), st[0], 2, 1}};
+  } dd[3] = {{uint64_t(L), st[2], 0, rows}, {uint64_t(H), st[1], 1, 1}, {uint64_t(B), st[0], 2, 1}};
   for (int i = 1; i < 3; ++i)
     for (int j = i; j > 0 && dd[j].stride < dd[j - 1].stride; --j) {
       const Dim t = dd[j];
@@ -823,11 +1039,35 @@ cudaError_t launch_sm90(const AttnParams& a, const long long* qs, const long lon
   p.o_sb = a.o_sb, p.o_sh = a.o_sh, p.o_sl = a.o_sl;
   p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
   p.scale_log2 = a.scale * kLog2e;
+  p.panels = 0;
   auto kern = flash_fwd_sm90<D, STAGES, kBias>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + S::kBQ - 1) / S::kBQ, batch * a.H);
   kern<<<grid, S::kThreads, S::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <bool kBias>
+cudaError_t launch_d512_sm90(const AttnParams& a, const long long* qs, const long long* ks,
+                             const long long* vs, int batch, cudaStream_t stream) {
+  Fa3Params p;
+  cudaError_t err = attn_map(&p.tq, p.oq, a.q, qs, batch, a.H, a.Lq, k2::kD, k2::kBQ);
+  if (err == cudaSuccess) err = attn_map(&p.tk, p.ok, a.k, ks, batch, a.H, a.Lk, k2::kD, k2::kBK);
+  if (err == cudaSuccess) err = attn_map(&p.tv, p.ov, a.v, vs, batch, a.H, a.Lk, k2::kD, k2::kBK);
+  if (err != cudaSuccess) return err;
+  p.bias = a.bias;
+  p.bias_sb = a.bias_sb;
+  p.o = a.o;
+  p.o_sb = a.o_sb, p.o_sh = a.o_sh, p.o_sl = a.o_sl;
+  p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
+  p.scale_log2 = a.scale * kLog2e;
+  p.panels = k2::kPanels;
+  auto kern = flash_fwd_d512_sm90<kBias>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(k2::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + k2::kBQ - 1) / k2::kBQ, batch * a.H);
+  kern<<<grid, k2::kThreads, k2::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -899,7 +1139,11 @@ extern "C" int sdm_flash_attention_k2(int dtype, int d, const void* q, const voi
                                       float scale, void* stream) {
   const AttnParams p = make_params(q, k, v, bias, o, qs, ks, vs, os, bias_sb, H, Lq, Lk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && d == 512) return launch<__nv_bfloat16, 512, 64, 32, 2, 2>(p, B, s);
+  // as K1: without a bias and with a positive scale the max is taken on the raw scores
+  const bool biased = bias != nullptr || !(scale > 0.f);
+  if (dtype == 1 && d == 512)
+    return biased ? launch_d512_sm90<true>(p, qs, ks, vs, B, s)
+                  : launch_d512_sm90<false>(p, qs, ks, vs, B, s);
   if (dtype == 0 && d == 512) return launch<float, 512, 32, 32, 2, 1>(p, B, s);
   return int(cudaErrorInvalidValue);
 }

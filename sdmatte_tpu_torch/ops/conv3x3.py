@@ -7,7 +7,10 @@
       edges.  :func:`conv3x3_csplit` is the channel-split wrapper over it.
   K4  csrc/conv3x3_i8.cu, the int8 x int8 -> int32 conv with the fp32
       dequantizing epilogue; replaces ::_kernel_i8 and also takes the
-      stride-2 and ragged-channel int8 convs of the int8 VAE.
+      stride-2 and ragged-channel int8 convs of the int8 VAE.  Stride 1 runs
+      on wgmma (s8) fed by TMA, with the nine taps folded into K for Cin 3 and 4;
+      stride 2 and other channel counts stay on the first design
+      (:func:`int8_route` says which kernel takes a conv).
 
 Both are bound by operations on the H100; the source notes say what the
 designs do about it.  :func:`conv3x3` and :func:`conv3x3_int8` take the plain
@@ -35,6 +38,9 @@ K4 = Kernel("conv3x3_int8", "conv3x3_i8", "sdm_conv3x3_i8",
             replaces="sdmatte_tpu/ops/conv3x3.py:336 (_kernel_i8)")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# K4's kernels, by the code sdm_conv3x3_i8_route returns
+INT8_ROUTES = ("conv3x3_i8_kernel (first design)", "conv3x3_i8_sm90<128>",
+               "conv3x3_i8_sm90<8>", "conv3x3_i8_fold")
 # input channels per chunk of the kernel (h90::BKC for bf16 and
 # ConvShape<float>::BKC for fp32 in the source; Cin must be a multiple of it)
 CIN_MULTIPLE = {torch.float32: 16, torch.bfloat16: 64}
@@ -179,6 +185,15 @@ def conv3x3_int8_plain(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
     return y.to(out_dtype).permute(0, 3, 1, 2)
 
 
+def int8_route(cin: int, cout: int, stride: int) -> str:
+    """The kernel of csrc/conv3x3_i8.cu that :func:`conv3x3_int8` reaches on
+    the card for a conv of these sizes (asked of the built library)."""
+    from ._build import load
+    fn = load(K4.library).sdm_conv3x3_i8_route
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return INT8_ROUTES[fn(cin, cout, stride)]
+
+
 def conv3x3_int8(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
                  out_dtype=torch.bfloat16):
     """Same contract as :func:`conv3x3_int8_plain` (that of
@@ -210,7 +225,8 @@ def conv3x3_int8(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
     if not xq.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("conv3x3_int8: x must be channels_last")
     ho, wo = _out_size(h, pt, pb, stride), _out_size(w, pl, pr, stride)
-    w_nhwc = wq.permute(0, 2, 3, 1).contiguous()
+    # the wgmma kernels read x and w by TMA from 16-byte aligned bases
+    xq, w_nhwc = _aligned16(xq), _aligned16(wq.permute(0, 2, 3, 1).contiguous())
     bias = None if b is None else b.to(device=xq.device, dtype=torch.float32).contiguous()
     y = torch.empty((bsz, cout, ho, wo), dtype=out_dtype, device=xq.device,
                     memory_format=torch.channels_last)

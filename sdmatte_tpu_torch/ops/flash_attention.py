@@ -4,8 +4,9 @@ plain version.
   K1  csrc/flash_attention.cu, d <= 128 (the U-Net's d=64 self- and
       cross-attention); replaces sdmatte_tpu/ops/flash_attention.py
       ::_kernel_fused_l and ::_kernel_d64_v2.
-  K2  the same template at d = 512 (the VAE mid-block's single head);
-      replaces ::_kernel.
+  K2  d = 512 (the VAE mid-block's single head); replaces ::_kernel.  In
+      bf16 a wgmma/TMA kernel of its own (d split over two warpgroups), in
+      fp32 the first design's template.
 
 Both are bound by operations on the H100; the source note says what the
 design does about it.  :func:`flash_attention` takes the plain version for a

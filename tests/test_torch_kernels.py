@@ -240,6 +240,29 @@ def test_k2_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("biased", [True, False])
+@pytest.mark.parametrize("shape", [(1, 1, 130, 170, 512), (2, 1, 64, 65, 512),
+                                   (2, 2, 200, 1000, 512), (1, 1, 1, 31, 512)])
+def test_k2_tile_edges_on_transposed_views(cuda, shape, biased):
+    """bf16 K2 at its 64-row and 64-key tiles' ragged edges and at the 32-key
+    halves its two warpgroups score: Lk = 170 leaves the second half of the
+    last tile 10 keys, Lk = 65 one key in the first half and none in the
+    second, Lk = 31 less than one half; q, k and v as (B, L, H, D) memory
+    viewed as (B, H, L, D).  With a bias, the last batch's keys all carry
+    -10000."""
+    b, h, lq, lk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=cuda).bfloat16().transpose(1, 2)
+               for n in (lq, lk, lk))
+    bias = None
+    if biased:
+        bias = (torch.rand(b, lk, generator=g, device=cuda) < 0.5).float() * -10000.0
+        bias[-1] = -10000.0
+    _close_attn(flash_attention(q, k, v, scale=d ** -0.5, bias=bias),
+                attention_plain(q, k, v, scale=d ** -0.5, bias=bias))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,gn,res", [((2, 64, 64, 128, 128), True, False),
                                           ((1, 50, 37, 128, 320), True, True),
@@ -293,6 +316,23 @@ K4_CASES = {
     "cin4_conv_in": ((1, 24, 24, 4, 512), 1, 1),
     "cout3_conv_out": ((1, 40, 40, 128, 3), 1, 1),
     "cout8_conv_out": ((2, 16, 16, 512, 8), 1, 1),
+    # the wgmma kernels' tile edges: W and H off the 4 x 64-pixel tile, Cout
+    # off the 128-channel tile and off 8, Cin off the 128-channel chunk
+    "s1_ragged_w130_cout100": ((2, 9, 130, 128, 100), 1, 1),
+    "s1_cin64": ((1, 20, 70, 64, 128), 1, 1),
+    "s1_cin320_three_chunks": ((1, 13, 66, 320, 136), 1, 1),
+    "s1_many_tiles_two_cout_tiles": ((2, 96, 200, 128, 256), 1, 1),
+    "s1_uneven_padding": ((1, 21, 67, 128, 64), 1, ((0, 2), (2, 0))),
+    "cout8_ragged_w": ((1, 5, 200, 128, 8), 1, 1),
+    "cout3_cin256": ((1, 10, 65, 256, 3), 1, 1),
+    # taps folded into K: Cin 3 and 4 (one and two k32 steps)
+    "cin3_ragged_cout130": ((1, 37, 70, 3, 130), 1, 1),
+    "cin4_ragged": ((2, 7, 129, 4, 24), 1, 1),
+    "cin3_uneven_padding": ((1, 9, 66, 3, 8), 1, ((2, 0), (0, 2))),
+    # what stays on the first design
+    "cin7_first_design": ((1, 10, 10, 7, 16), 1, 1),
+    "cin20_first_design": ((1, 12, 12, 20, 24), 1, 1),
+    "s2_cin3_first_design": ((1, 16, 18, 3, 16), 2, ((0, 1), (0, 1))),
 }
 
 
@@ -310,9 +350,12 @@ def test_k4_matches_plain(cuda, case, out_dtype):
     scale = torch.rand(cout, generator=g, device=cuda) * 1e-4 + 1e-5
     bias = torch.randn(cout, generator=g, device=cuda) * 0.1
     kw = dict(stride=stride, padding=padding, out_dtype=out_dtype)
-    tol = (1e-3, 1e-6) if out_dtype == torch.float32 else (2e-2, 2e-2)
-    _close(conv3x3_int8(xq, wq, scale, bias, **kw),
-           conv3x3_int8_plain(xq, wq, scale, bias, **kw), *tol)
+    # the int32 sums and the epilogue are exact: fp32 equals the plain
+    # version bit for bit, bf16 is its one rounding
+    got = conv3x3_int8(xq, wq, scale, bias, **kw)
+    ref = conv3x3_int8_plain(xq, wq, scale, bias, **kw)
+    assert got.shape == ref.shape
+    _close(got, ref, 0.0, 0.0)
 
 
 @pytest.mark.cuda
