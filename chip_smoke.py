@@ -30,8 +30,25 @@ Phases, in order; any failure exits non-zero before the result lines:
      <= 1e-2); on the vae_int8 path the plain versions run on the kernels'
      path's int8 activations and each int8 conv's input is held to the
      kernels' path's (relative MAE <= 2e-2)
-With --profile, one more warm matte of the default and vae_int8 paths runs
-under torch.profiler and the device time per kernel name, the device's busy
+  6. the entry points at full width (SDMatteConfig(), depth not cut, bf16,
+     1024 px), each step raising on failure: (a) the seeded model written by
+     the port's safetensors writer as bf16 under the legacy VAE attention
+     names and a "module." prefix, beside an SD2.1-base config directory;
+     (b) the ComfyUI node loading it (nothing missing, unexpected or
+     mismatched; every weight bit-equal to the written model's) and matting
+     the photo and trimap read back from 8-bit PNGs, against a direct
+     pipeline call; (c) the HTTP server with its worker thread warmed as
+     ``--warmup`` does (a worker that was not is timed first), four
+     concurrent requests served as one batch-4 pipeline call and one of
+     another size as its own, each alpha PNG against its direct call; (d) the CLI in a subprocess on the
+     checkpoint, against (b)'s alpha; (e) the [T, F, T] text gating (the mid
+     stage's cross-attention onto 77 text tokens, K1 at Lk = 77) with a
+     synthetic tokenizer, against its plain versions.  Launch counts are
+     asserted on every step
+After phase 6, K1 and SDPA at the text path's shapes by device time
+(torch.profiler), where an event pair would time the host's work.
+With --profile, one more warm matte of each phase-5 path runs under
+torch.profiler and the device time per kernel name, the device's busy
 share and the top kernels are printed.  The last two lines are the
 per-kernel JSON record and the device record.
 """
@@ -117,6 +134,14 @@ INT8_SHAPES = [   # (label, (B, H, W, Cin, Cout), stride, launches)
     ("dec 1024^2 128->128", (1, 1024, 1024, 128, 128), 1, 5),
     ("dec conv_out", (1, 1024, 1024, 128, 3), 1, 1),
 ]
+# K1 on the text path: the U-Net cross-attention onto the 77 text tokens,
+# unbiased.  Under the [T, F, T] gating of phase 6 (e) it is the mid stage (16^2
+# latent tokens, 1280 channels, 20 heads): one launch per matte.  A gating
+# with a False down stage would run the 128^2 stage's (5 heads) instead.
+TEXT_ATTN_SHAPES = [   # (label, (B, H, Lq, Lk, D), biased, launches on (e))
+    ("text cross 16^2 x 77", (1, 20, 256, 77, 64), False, 1),
+    ("text cross 128^2 x 77", (1, 5, 16384, 77, 64), False, 0),
+]
 DOWN_PAD = ((0, 1), (0, 1))   # diffusers Downsample2D's padding at stride 2
 # tolerances: the JAX package's own bars (tests/test_flash_attention.py:43,97,
 # tests/test_conv3x3.py:64,117,135), as allclose(atol, rtol), except bf16
@@ -200,6 +225,22 @@ def median_ms(torch, fn, reps=5, warm=2):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, reps=10):
+    """Device time per call: the CUDA kernel time that torch.profiler records
+    for ``reps`` calls, over ``reps``.  Unlike an event pair around one call,
+    it leaves out the host's work for the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def bound(flops, nbytes, flops_rate=BF16_FLOPS):
     t_ops, t_bytes = flops / flops_rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -270,6 +311,10 @@ class Smoke:
              torch.float32, "attn_fp32"),
             ("flash_attention_k1", "fp32 ragged 100x200", (1, 2, 100, 200, 64), True,
              torch.float32, "attn_fp32"),
+            *[("flash_attention_k1", f"{prec}{label}", shape, biased, dtype, tol)
+              for label, shape, biased, _ in TEXT_ATTN_SHAPES
+              for prec, dtype, tol in (("", torch.bfloat16, "attn_bf16"),
+                                       ("fp32 ", torch.float32, "attn_fp32"))],
             ("flash_attention_k2", "ragged 80^2 (640 px)", (2, 1, 6400, 6400, 512), False,
              torch.bfloat16, "attn_bf16"),
             # ragged for K2's 64-row and 64-key tiles and for the 32-key
@@ -417,25 +462,32 @@ class Smoke:
         from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
         torch = self.torch
         rows = []
+
+        def time_attention(shape, biased):
+            b, h, lq, lk, d = shape
+            q, k, v, bias, scale = self.attn_inputs(shape, biased, torch.bfloat16)
+            mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
+            t = {
+                "ms": median_ms(torch, lambda: flash_attention(q, k, v, scale=scale, bias=bias)),
+                "plain_ms": median_ms(torch, lambda: attention_plain(q, k, v, scale=scale, bias=bias),
+                                      reps=3, warm=1),
+                "library_ms": median_ms(torch, lambda: tF.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale)),
+            }
+            flops = 4 * b * h * lq * lk * d
+            nbytes = 2 * b * h * (2 * lq + 2 * lk) * d + (4 * b * lk if biased else 0)
+            t["flops"], t["bytes"] = flops, nbytes
+            t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+            t["mufu_ms"] = b * h * lq * lk / MUFU_EX2_PER_S * 1e3
+            return t
+
         for name, shapes in ATTN_SHAPES.items():
             for label, shape, biased, launches in shapes:
-                b, h, lq, lk, d = shape
-                q, k, v, bias, scale = self.attn_inputs(shape, biased, torch.bfloat16)
-                mask = None if bias is None else bias[:, None, None, :].to(torch.bfloat16)
-                t = {
-                    "ms": median_ms(torch, lambda: flash_attention(q, k, v, scale=scale, bias=bias)),
-                    "plain_ms": median_ms(torch, lambda: attention_plain(q, k, v, scale=scale, bias=bias),
-                                          reps=3, warm=1),
-                    "library_ms": median_ms(torch, lambda: tF.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask, scale=scale)),
-                }
-                flops = 4 * b * h * lq * lk * d
-                nbytes = 2 * b * h * (2 * lq + 2 * lk) * d + (4 * b * lk if biased else 0)
-                t["flops"], t["bytes"] = flops, nbytes
-                t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
-                t["mufu_ms"] = b * h * lq * lk / MUFU_EX2_PER_S * 1e3
-                rows.append((name, label, shape, launches, t))
-                del q, k, v
+                rows.append((name, label, shape, launches, time_attention(shape, biased)))
+        # the text path's shapes, printed beside the others; the kernels record
+        # holds the default matte's launches, which do not include them
+        text_rows = [("flash_attention_k1", label, shape, launches, time_attention(shape, biased))
+                     for label, shape, biased, launches in TEXT_ATTN_SHAPES]
         for label, shape, gn, res, launches in CONV_SHAPES:
             b, h, w, cin, cout = shape
             x, wt, bias, affine, r = self.conv_inputs(shape, gn, res, torch.bfloat16)
@@ -462,7 +514,7 @@ class Smoke:
             rows.append(("conv3x3", label, shape, launches, t))
             del x, xa, r
         rows += self.time_int8_conv()
-        for name, label, shape, launches, t in rows:
+        for name, label, shape, launches, t in rows + text_rows:
             extra = "".join(f"  {key} {t[key]:.4f}" for key in ("mufu_ms", "cudnn_bf16_ms")
                             if key in t) + (f"  [{t['route']}]" if "route" in t else "")
             log(f"  time {name:20s} {label:24s} {str(shape):32s} x{launches}  "
@@ -470,6 +522,22 @@ class Smoke:
                 f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
                 f"({t['bound_by']}){extra}")
         return rows
+
+    def text_device_times(self):
+        """K1 and SDPA at the text path's shapes by device time: at these
+        sizes an event pair around one call mostly times the host's work for
+        it.  Run after the timed mattes, so that no profiler session precedes
+        them in this process."""
+        import torch.nn.functional as tF
+        from sdmatte_tpu_torch.ops.flash_attention import flash_attention
+        torch = self.torch
+        for label, shape, _, _ in TEXT_ATTN_SHAPES:
+            q, k, v, _, scale = self.attn_inputs(shape, False, torch.bfloat16)
+            kernel = device_ms(torch, lambda: flash_attention(q, k, v, scale=scale))
+            library = device_ms(torch, lambda: tF.scaled_dot_product_attention(q, k, v,
+                                                                               scale=scale))
+            log(f"  device time flash_attention_k1 {label:24s} {str(shape):28s} kernel_ms "
+                f"{kernel:.4f}  library_ms {library:.4f} (torch.profiler, mean of 10 calls)")
 
     def time_int8_conv(self):
         """K4 per vae_int8 shape.  The yardstick is torch._int_mm on the
@@ -542,7 +610,8 @@ class Smoke:
         with torch.device("meta"):
             model = SDMatte(SDMatteConfig())
         init_random_(model, seed=0, device=self.dev)
-        n = sum(p.numel() for p in model.parameters())
+        n = (sum(p.numel() for p in model.parameters()),
+             sum(p.numel() for p in model.text_encoder.parameters()))
         return MattingPipeline(model, policy=BF16, device=self.dev, **kw), n
 
     def matte(self, label, predicted, **kw):
@@ -556,7 +625,9 @@ class Smoke:
         t0 = time.perf_counter()
         pipe, n_params = self.pipeline(**kw)
         torch.cuda.synchronize()
-        log(f"  [{label}] model: {n_params / 1e6:.1f} M params, seeded random weights, "
+        log(f"  [{label}] model: {n_params[0] / 1e6:.1f} M params ("
+            f"{(n_params[0] - n_params[1]) / 1e6:.1f} M without the text tower, which this "
+            f"path does not run), seeded random weights, "
             f"bf16, {kw or 'default options'}, ready in {time.perf_counter() - t0:.1f} s")
 
         pipe(img, tri, options=opts)          # warm: allocator, cuDNN plans
@@ -726,6 +797,431 @@ class Smoke:
             log(f"    {ms:9.3f} ms  x{n:<5d} {key[:110]}")
 
 
+def legacy_name(key: str) -> str:
+    """``module.`` + the key, with the VAE mid-block attention under its legacy
+    diffusers names (query/key/value/proj_attn), as old exports wrote them."""
+    if key.startswith("vae."):
+        for new, old in ((".attentions.0.to_q.", ".attentions.0.query."),
+                         (".attentions.0.to_k.", ".attentions.0.key."),
+                         (".attentions.0.to_v.", ".attentions.0.value."),
+                         (".attentions.0.to_out.0.", ".attentions.0.proj_attn.")):
+            key = key.replace(new, old)
+    return "module." + key
+
+
+def write_tokenizer(d: str, caption: str) -> str:
+    """A synthetic CLIP vocab and merges (no tokenizer file is in the repo):
+    every byte-level character alone and word-final, the merges that spell
+    the caption's words, and the special tokens at their SD2.1 ids."""
+    from sdmatte_tpu_torch.models.tokenizer import _bytes_to_unicode
+    os.makedirs(d, exist_ok=True)
+    vocab = {}
+    for ch in _bytes_to_unicode().values():
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    merges = ["#version: 0.2"]
+    for w in caption.lower().split():
+        for i in range(1, len(w)):
+            pair = (w[:i], w[i] + ("</w>" if i == len(w) - 1 else ""))
+            vocab.setdefault(pair[0] + pair[1], len(vocab))
+            if " ".join(pair) not in merges:
+                merges.append(" ".join(pair))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 49406, 49407
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("\n".join(merges) + "\n")
+    return d
+
+
+class EntryPoints:
+    """Phase 6: the node, the server and the CLI on a checkpoint written at
+    full width, and the text path.  Each step raises on failure."""
+
+    CAPTION = "a photo of a cat"
+
+    def __init__(self, smoke, workdir: str, root: str):
+        from sdmatte_tpu_torch.ops._build import Kernel
+        self.smoke, self.torch, self.dev = smoke, smoke.torch, smoke.dev
+        self.dir, self.root = workdir, root
+        self.kernels = Kernel.registry
+        self.ckpt = os.path.join(workdir, "SDMatte", "SDMatte.safetensors")
+        self.cfg_dir = os.path.join(workdir, "diffusers", "stable-diffusion-2-1-base")
+        self.numbers = {}
+
+    def zero_counts(self):
+        for k in self.kernels:
+            k.launches = 0
+
+    def expect(self, label, predicted, got=None):
+        got = got if got is not None else {k.name: k.launches for k in self.kernels}
+        log(f"  [{label}] launches: {got}  predicted: {predicted}")
+        if got != predicted:
+            raise AssertionError(f"{label}: the launch counts differ from the prediction")
+
+    def step(self, name, fn):
+        t0 = time.perf_counter()
+        fn()
+        self.torch.cuda.synchronize()
+        log(f"  step {name}: {time.perf_counter() - t0:.1f} s")
+
+    # -- (a) -------------------------------------------------------------
+    def checkpoint(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.checkpoint import load_sdmatte_checkpoint, save_checkpoint
+        from sdmatte_tpu_torch.configs import SDMatteConfig, save_pretrained_dir
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        with torch.device("meta"):
+            model = SDMatte(SDMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        model.to(torch.bfloat16)
+        n = sum(p.numel() for p in model.parameters())
+        n_text = sum(p.numel() for p in model.text_encoder.parameters())
+        os.makedirs(os.path.dirname(self.ckpt))
+        t0 = time.perf_counter()
+        size = save_checkpoint(model, self.ckpt, dtype=torch.bfloat16, rename=legacy_name)
+        t_write = time.perf_counter() - t0
+        save_pretrained_dir(SDMatteConfig(), self.cfg_dir)
+        log(f"  (a) model {n / 1e6:.1f} M params ({n_text / 1e6:.1f} M in the text tower, "
+            f"{(n - n_text) / 1e6:.1f} M without it); checkpoint written as bf16 under "
+            f"'module.' and the legacy VAE attention names: {size / 1e9:.3f} GB in "
+            f"{t_write:.2f} s ({size / 1e9 / t_write:.2f} GB/s, card to file)")
+        # the loader alone, into a bf16 model on the card
+        with torch.device("meta"):
+            fresh = SDMatte(SDMatteConfig()).to(torch.bfloat16)
+        fresh.to_empty(device=self.dev)
+        t0 = time.perf_counter()
+        report = load_sdmatte_checkpoint(fresh, self.ckpt)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        log(f"  (a) loader: {report.summary()} ignored={len(report.ignored)} in {t_load:.2f} s "
+            f"({size / 1e9 / t_load:.2f} GB/s, file in the page cache to the card)")
+        if report.missing or report.unexpected or report.mismatched:
+            raise AssertionError(f"(a) the loader's report is not clean: {report.summary()}")
+        written = model.state_dict()
+        bad = [k for k, v in fresh.state_dict().items() if not torch.equal(v, written[k])]
+        if bad:
+            raise AssertionError(f"(a) {len(bad)} loaded tensors differ from the written ones, "
+                                 f"first {bad[0]}")
+        self.numbers.update(write_s=t_write, load_s=t_load, gb=size / 1e9)
+        self.model = model
+
+    # -- (b) -------------------------------------------------------------
+    def node(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.api import comfy_shim
+        from sdmatte_tpu_torch.api import node as node_mod
+        from sdmatte_tpu_torch.assets import manager
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.pipeline import MattingPipeline
+        from sdmatte_tpu_torch.utils.images import load_unit_image, save_png
+
+        def refuse(url, dst, progress=True):
+            raise AssertionError(f"(b) tried to download {url}")
+
+        manager._default_fetch = refuse
+        comfy_shim.add_model_folder_path("SDMatte", os.path.dirname(self.ckpt))
+        comfy_shim.add_model_folder_path("diffusers", os.path.dirname(self.cfg_dir))
+        t0 = time.perf_counter()
+        pipe = node_mod.get_pipeline("SDMatte.safetensors")
+        torch.cuda.synchronize()
+        t_ready = time.perf_counter() - t0
+        rep = pipe.load_report
+        log(f"  (b) node model ready in {t_ready:.2f} s: {rep.summary()} "
+            f"ignored={len(rep.ignored)}")
+        if rep.missing or rep.unexpected or rep.mismatched:
+            raise AssertionError(f"(b) the node's load report is not clean: {rep.summary()}")
+        if pipe.cfg != self.model.cfg:
+            raise AssertionError("(b) the node's config, read from the config directory, is "
+                                 "not the written model's")
+        ours = pipe.model.state_dict()
+        written = self.model.state_dict()
+        bad = [k for k, v in written.items() if not torch.equal(ours[k], v)]
+        if bad or len(ours) != len(written):
+            raise AssertionError(f"(b) {len(bad)} of the node's weights differ from the "
+                                 f"written model's")
+        log(f"  (b) all {len(written)} tensors of the node's model equal the written model's "
+            f"bit for bit")
+
+        img, tri, self.opts = self.smoke.inputs()
+        self.photo = os.path.join(self.dir, "photo.png")
+        self.trimap = os.path.join(self.dir, "trimap.png")
+        save_png(self.photo, img)
+        save_png(self.trimap, tri)
+        self.img = load_unit_image(self.photo, 3)
+        self.tri = load_unit_image(self.trimap, 1)[..., 0]
+        args = ("SDMatte.safetensors", torch.from_numpy(self.img)[None],
+                torch.from_numpy(self.tri)[None], self.opts.inference_size, False,
+                "alpha_only", True, 0.8)
+        apply = node_mod.SDMatteApply().apply_matte
+        self.zero_counts()
+        t0 = time.perf_counter()
+        alpha, matted = apply(*args)
+        t_first = time.perf_counter() - t0
+        self.expect("(b) node", self.predicted(k3=11))
+        t0 = time.perf_counter()
+        apply(*args)
+        t_warm = time.perf_counter() - t0
+        if not (alpha.device.type == "cpu" and alpha.dtype == torch.float32
+                and alpha.is_contiguous() and tuple(alpha.shape) == (1,) + self.tri.shape
+                and matted.device.type == "cpu"):
+            raise AssertionError(f"(b) the node returned {alpha.dtype} {tuple(alpha.shape)} on "
+                                 f"{alpha.device}")
+        alpha.mul_(1.0)                      # the caller may write it
+        self.direct = MattingPipeline(self.model, policy=BF16, device=self.dev)
+        ref, _ = self.direct(self.img, self.tri, options=self.opts)
+        diff = (alpha - ref.cpu()).abs()
+        log(f"  (b) node apply_matte: first call {t_first:.4f} s, warm {t_warm:.4f} s; alpha "
+            f"{tuple(alpha.shape)} fp32 on the CPU; against a direct MattingPipeline call on "
+            f"the written weights: MAE {float(diff.mean()):.3e}, max {float(diff.max()):.3e} "
+            f"(bar MAE 1e-2)")
+        if not float(diff.mean()) <= 1e-2:
+            raise AssertionError("(b) the node's alpha differs from the direct call")
+        self.numbers.update(ready_s=t_ready, node_first_s=t_first, node_warm_s=t_warm)
+        self.node_alpha = alpha
+        self.pipe = pipe
+
+    def predicted(self, *, k3):
+        from sdmatte_tpu_torch.ops.conv3x3 import K3, K4
+        from sdmatte_tpu_torch.ops.flash_attention import K1, K2
+        return {K1.name: 32, K2.name: 2, K3.name: k3, K4.name: 0}
+
+    # -- (c) -------------------------------------------------------------
+    def server(self):
+        import base64
+        import io
+        import threading
+        import urllib.request
+        import numpy as np
+        from sdmatte_tpu_torch.api import serve as serve_mod
+        from sdmatte_tpu_torch.utils.images import to_uint8
+        from sdmatte_tpu_torch.utils.observability import METRICS
+        torch = self.torch
+        opts = self.opts
+
+        def png_b64(a):
+            from sdmatte_tpu_torch.utils.images import save_png
+            buf = io.BytesIO()
+            save_png(buf, a)
+            return base64.b64encode(buf.getvalue()).decode()
+
+        def post(url, payload):
+            req = urllib.request.Request(url + "/v1/matte", data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        def check(label, body, img, tri):
+            from PIL import Image
+            got = np.asarray(Image.open(io.BytesIO(base64.b64decode(body["alpha"]))))
+            ref, _ = self.direct(img, tri, options=opts)
+            d = np.abs(got.astype(np.int16) - to_uint8(ref[0].cpu().numpy()).astype(np.int16))
+            log(f"  (c) {label}: alpha {got.shape}, against its direct call (8-bit): MAE "
+                f"{d.mean() / 255:.3e}, max {d.max()} steps (bar MAE 1e-2); server ms "
+                f"{body['ms']}")
+            if got.shape != tri.shape or not d.mean() / 255 <= 1e-2:
+                raise AssertionError(f"(c) {label}: the served alpha differs from the direct call")
+
+        # four different photos of one shape, the 8-bit PNG values as they are
+        inputs = [(np.roll(self.img, 97 * i, axis=1), np.roll(self.tri, 97 * i, axis=1))
+                  for i in range(4)]
+        payloads = [{"image": png_b64(a), "trimap": png_b64(t),
+                     "inference_size": opts.inference_size} for a, t in inputs]
+        # a worker thread's first mattes when nothing warmed that thread
+        cold = serve_mod.MicroBatcher(self.pipe, window_ms=0.0)
+        try:
+            t_cold = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                cold.submit(self.img, self.tri, opts)
+                t_cold.append(time.perf_counter() - t0)
+        finally:
+            cold.shutdown()
+        log(f"  (c) a micro-batcher whose worker thread was not warmed: first matte "
+            f"{t_cold[0]:.4f} s, second {t_cold[1]:.4f} s")
+        # the server as `serve.main --warmup 1024 --max-batch 4` starts it: the
+        # worker warms batch sizes 1 and 4 (the allocator's growth included)
+        warmed = threading.Event()
+
+        def warmup():
+            self.pipe.warmup(sizes=(opts.inference_size,), batch_sizes=(1, 4))
+            warmed.set()
+
+        httpd = serve_mod.serve(self.pipe, port=0, host="127.0.0.1", window_ms=300.0,
+                                warmup=warmup)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        batcher = httpd.service.batcher
+        try:
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+                health = json.loads(r.read())
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                json.loads(r.read())
+            log(f"  (c) GET /healthz {health}; GET /metrics ok")
+            if health != {"status": "ok", "backend": "cuda",
+                          "device": torch.cuda.get_device_name(0)}:
+                raise AssertionError(f"(c) /healthz says {health}")
+            if not warmed.wait(timeout=300):
+                raise AssertionError("(c) the worker's warmup did not end")
+            # two lone requests, timed without the coalescing window
+            window, batcher.window_s = batcher.window_s, 0.0
+            t_lone = []
+            for i in range(2):
+                t0 = time.perf_counter()
+                body = post(url, payloads[0])
+                t_lone.append(time.perf_counter() - t0)
+                check(f"lone request {i + 1} (batch 1, no coalescing window, "
+                      f"{t_lone[-1]:.4f} s)", body, *inputs[0])
+            t_one = t_lone[-1]
+            batcher.window_s = window
+            results = [None] * 4
+
+            def worker(i):
+                results[i] = post(url, payloads[i])
+
+            threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+            calls = batcher.batch_calls
+            self.zero_counts()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            t_four = time.perf_counter() - t0
+            if any(r is None for r in results):
+                raise AssertionError("(c) a request of the four did not complete")
+            self.expect("(c) four requests", self.predicted(k3=0))
+            sizes = list(METRICS.values["batch_size"])[-2:]
+            log(f"  (c) four concurrent requests: {batcher.batch_calls - calls} pipeline "
+                f"call(s), batch sizes of the last two calls {sizes}; {t_four:.4f} s for the "
+                f"four, {t_four / 4:.4f} s per image (one request alone: {t_one:.4f} s)")
+            if batcher.batch_calls - calls != 1 or sizes[-1] != 4.0:
+                raise AssertionError("(c) the four requests were not served as one batch-4 call")
+            for i, body in enumerate(results):
+                check(f"request {i} of the four", body, *inputs[i])
+            rows = 3 * self.tri.shape[0] // 4
+            img, tri = self.img[:rows], self.tri[:rows]
+            t0 = time.perf_counter()
+            body = post(url, {"image": png_b64(img), "trimap": png_b64(tri),
+                              "inference_size": opts.inference_size})
+            t_other = time.perf_counter() - t0
+            if batcher.batch_calls - calls != 2:
+                raise AssertionError("(c) the request of another size did not take its own call")
+            check(f"a {rows}x{tri.shape[1]} request in its own call ({t_other:.4f} s)", body,
+                  img, tri)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.shutdown()
+            thread.join(timeout=30)
+        self.numbers.update(cold_thread_first_s=t_cold[0], cold_thread_second_s=t_cold[1],
+                            served_first_s=t_lone[0], served_one_s=t_one,
+                            served_four_s=t_four)
+
+    # -- (d) -------------------------------------------------------------
+    def cli(self):
+        import numpy as np
+        from sdmatte_tpu_torch.utils.images import load_unit_image, to_uint8
+        out = os.path.join(self.dir, "cli_alpha.png")
+        env = dict(os.environ, SDMATTE_TPU_MODELS_DIR=self.dir)
+        cmd = [sys.executable, "-m", "sdmatte_tpu_torch.cli", "--ckpt", self.ckpt,
+               "--image", self.photo, "--trimap", self.trimap, "--out", out,
+               "--size", str(self.opts.inference_size)]
+        # what any process that touches the card pays: start, imports, the
+        # CUDA context, exit
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import torch, sdmatte_tpu_torch.cli; "
+                        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                       cwd=self.root, env=env, check=True, timeout=300)
+        bare = time.perf_counter() - t0
+        log(f"  (d) a bare process (imports, CUDA context, exit): {bare:.2f} s")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=self.root, env=env, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in r.stderr.splitlines() if ln.startswith(("[cli]", "[sdmatte"))]
+        for ln in lines:
+            log(f"  (d) {ln}")
+        if r.returncode != 0:
+            log(r.stderr[-4000:])
+            raise AssertionError(f"(d) the CLI exited {r.returncode}")
+        counts = [ln.split("hand-kernel launches: ", 1)[1] for ln in lines
+                  if "hand-kernel launches" in ln]
+        self.expect("(d) CLI process", self.predicted(k3=11), json.loads(counts[-1]))
+        got = to_uint8(load_unit_image(out, 1)[..., 0]).astype(np.int16)
+        ref = to_uint8(self.node_alpha[0].numpy()).astype(np.int16)
+        mae = float(np.abs(got - ref).mean()) / 255
+        log(f"  (d) python -m sdmatte_tpu_torch.cli: exit 0 in {wall:.2f} s (wall, process "
+            f"start to exit); alpha PNG {got.shape} against (b)'s alpha: MAE {mae:.3e} "
+            f"(bar 1/255 = {1 / 255:.3e})")
+        if got.shape != self.tri.shape or not mae <= 1 / 255:
+            raise AssertionError("(d) the CLI's alpha differs from the node's")
+        self.numbers.update(cli_s=wall, bare_process_s=bare)
+
+    # -- (e) -------------------------------------------------------------
+    def text_path(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        from sdmatte_tpu_torch.models.tokenizer import CLIPTokenizer
+        from sdmatte_tpu_torch.pipeline import MattingPipeline
+        tok = CLIPTokenizer.from_pretrained_dir(
+            write_tokenizer(os.path.join(self.dir, "tokenizer"), self.CAPTION))
+        ids = tok([self.CAPTION])[0]
+        base = SDMatteConfig()
+        cfg = dataclasses.replace(base, unet=dataclasses.replace(
+            base.unet, use_encoder_hidden_states_list=(True, False, True),
+            use_attention_mask_list=(True, False, True)))
+        opts = dataclasses.replace(self.opts, mask_refine=False)
+
+        def build(**kw):
+            with torch.device("meta"):
+                model = SDMatte(cfg)
+            init_random_(model, seed=0, device=self.dev)
+            return MattingPipeline(model, policy=BF16, device=self.dev, tokenizer=tok, **kw)
+
+        pipe = build()
+        self.zero_counts()
+        alpha, _ = pipe(self.img, self.tri, options=opts, caption=[self.CAPTION])
+        torch.cuda.synchronize()
+        self.expect("(e) text gating [T, F, T]", self.predicted(k3=11))
+        t0 = time.perf_counter()
+        pipe(self.img, self.tri, options=opts, caption=[self.CAPTION])
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        del pipe
+        plain = build(impl="plain")
+        self.zero_counts()
+        ref, _ = plain(self.img, self.tri, options=opts, caption=[self.CAPTION])
+        torch.cuda.synchronize()
+        if any(k.launches for k in self.kernels):
+            raise AssertionError("(e) the plain run launched a hand kernel")
+        del plain
+        mae = float((alpha.float() - ref.float()).abs().mean())
+        log(f"  (e) caption {self.CAPTION!r} -> {sum(i != tok.pad_token_id for i in ids)} "
+            f"ids before padding; warm matte {t_warm:.4f} s; alpha before mask_refine against "
+            f"the plain versions: MAE {mae:.3e} (bar 1e-2)")
+        if not (torch.isfinite(alpha).all() and mae <= 1e-2):
+            raise AssertionError(f"(e) the text path's alpha MAE {mae} > 1e-2")
+        self.numbers.update(text_warm_s=t_warm)
+
+    def run(self):
+        self.step("(a) checkpoint", self.checkpoint)
+        self.step("(b) node", self.node)
+        self.step("(c) server", self.server)
+        self.step("(d) CLI", self.cli)
+        del self.pipe, self.direct, self.model
+        from sdmatte_tpu_torch.api import node as node_mod
+        node_mod._PIPELINE_CACHE.clear()
+        self.torch.cuda.empty_cache()
+        self.step("(e) text path", self.text_path)
+        log(f"  phase 6 numbers: { {k: round(v, 4) for k, v in self.numbers.items()} }")
+
+
 def main() -> int:
     try:
         import torch
@@ -808,7 +1304,7 @@ def main() -> int:
     rows = smoke.time_kernels()
 
     log("== 5. end to end: full width, bf16, 1024 px (with --profile, a profile of one "
-        "more warm matte follows the default and vae_int8 paths' timings)")
+        "more warm matte follows each path's timings)")
     n_int8 = sum(n for *_, n in INT8_SHAPES)
     paths = {
         "default": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0}, {}),
@@ -819,7 +1315,6 @@ def main() -> int:
     }
     results = {}
     for label, (predicted, kw) in paths.items():
-        smoke.profile_on = "--profile" in sys.argv[1:] and label != "int8 storage"
         results[label] = smoke.matte(label, predicted, **kw)
     base = results["default"]
     for label, (_, median, peak, alpha_raw) in results.items():
@@ -827,6 +1322,16 @@ def main() -> int:
         log(f"  {label:14s} warm median {median:.4f} s (default {base[1]:.4f} s), peak "
             f"{peak:.2f} GiB (default {base[2]:.2f} GiB); alpha MAE vs the default bf16 "
             f"matte before mask_refine {mae:.3e} (printed only: random weights)")
+
+    log("== 6. entry points at full width: checkpoint, node, server, CLI, text path")
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix="sdmatte_smoke_")
+    try:
+        EntryPoints(smoke, workdir, root).run()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    smoke.text_device_times()
 
     record = []
     for kern, path, rate in ((K1, "default", BF16_FLOPS), (K2, "default", BF16_FLOPS),

@@ -24,9 +24,6 @@ from torch import nn
 
 from ..ops.quant import SCALE_NAMES
 
-# top-level trees the port has no module for: the CLIP text tower never runs
-# under the [T, T, T] gating the port supports (ROADMAP Queue 1: "Text tower")
-UNPORTED_TREES = ("text_encoder",)
 # JAX leaf name -> torch name, for the leaves laid out as kernels
 _KERNELS = {"kernel": "weight", "kernel_q": "weight_q", "kernel_i8": "weight_i8"}
 _SCALES = {"kernel_scale": "weight_scale", "kernel_s": "weight_s"}
@@ -74,9 +71,9 @@ def _adopt_int8_fields(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
 
 
 def load_params(model: nn.Module, tree: dict) -> nn.Module:
-    """Load a JAX param tree into ``model`` with ``strict=True`` (the trees
-    in ``UNPORTED_TREES`` are left out)."""
-    sd = params_to_state_dict({k: v for k, v in tree.items() if k not in UNPORTED_TREES})
+    """Load a JAX param tree (vae, unet and text_encoder) into ``model``
+    with ``strict=True``."""
+    sd = params_to_state_dict(tree)
     _adopt_int8_fields(model, sd)
     model.load_state_dict(sd, strict=True)
     return model

@@ -7,8 +7,9 @@ image + prompt to alpha (sdmatte_tpu/models/sdmatte.py), trimap/bbox branch.
   * opacity trans = 1 - is_trans drives the time embedding
   * alpha = clip(channel mean of the decoded image), remapped to [0, 1]
 
-Inputs are NCHW tensors.  The text tower is not ported: it never runs under
-the default [T, T, T] gating, and a config that needs it raises.
+Inputs are NCHW tensors.  The CLIP text tower runs only when a stage's
+``use_encoder_hidden_states_list`` entry is False: that stage's
+cross-attention then reads the 77 text tokens of ``data["text_ids"]``.
 """
 
 from __future__ import annotations
@@ -22,13 +23,13 @@ from ..configs import AUX_INPUT_COORDS, SDMatteConfig
 from ..core.dtypes import FP32, Policy
 from ..core.embeddings import sinusoidal_embedding
 from ..core.imaging import resize_nearest
+from .clip import CLIPTextModel
 from .unet import MatteUNet
 from .vae import AutoencoderKL
 
 
 # ROADMAP entries are named by their titles
 _META_PATHS = 'ROADMAP Queue 1: "Remaining meta-arch paths"'
-_TEXT_TOWER = 'ROADMAP Queue 1: "Text tower"'
 
 
 def _todo(what: str, item: str):
@@ -41,6 +42,8 @@ class SDMatte(nn.Module):
         self.cfg = cfg
         self.vae = AutoencoderKL(cfg.vae)
         self.unet = MatteUNet(cfg.unet)
+        # after vae and unet: init_random_ fills parameters in this order
+        self.text_encoder = CLIPTextModel(cfg.clip)
 
     def forward(self, data: dict, *, aux_input_type: Optional[str] = None,
                 policy: Policy = FP32, impl: str = "auto",
@@ -50,7 +53,8 @@ class SDMatte(nn.Module):
                 speed_decode_half: bool = False,
                 return_intermediates: bool = False):
         """data (NCHW tensors): image (B, 3, S, S) in [-1, 1]; <aux_type>
-        (B, 1, S, S) in [-1, 1]; <aux>_coords (B, 4); is_trans (B,).
+        (B, 1, S, S) in [-1, 1]; <aux>_coords (B, 4); is_trans (B,);
+        text_ids (B, 77) token ids, needed only under text gating.
         Returns alpha (B, 1, S, S) fp32 in [0, 1]."""
         cfg = self.cfg
         aux_type = aux_input_type or cfg.aux_input
@@ -73,9 +77,6 @@ class SDMatte(nn.Module):
         if return_intermediates or cfg.use_dis_loss:
             raise _todo("return_intermediates and the distillation features",
                         f'{_META_PATHS} and "Training, video, multi-device"')
-        if not all(cfg.unet.use_encoder_hidden_states_list):
-            raise _todo("text-conditioned gating (the CLIP text tower)",
-                        _TEXT_TOWER)
 
         # -- latents: one concat-batch encode of rgb || aux ---------------
         aux = data[aux_type]
@@ -103,6 +104,9 @@ class SDMatte(nn.Module):
         aux_tokens = None
         if cfg.use_encoder_hidden_states:
             aux_tokens = self.unet.aux_tokens(aux_latent, policy=policy, impl=impl)
+        text_tokens = None
+        if not all(cfg.unet.use_encoder_hidden_states_list):
+            text_tokens = self.text_encoder(data["text_ids"], policy=policy)
         trans = 1.0 - data["is_trans"].float().reshape(-1)
         enc_mask = latent_mask if (cfg.use_encoder_attention_mask and latent_mask is not None
                                    and aux_tokens is not None) else None
@@ -111,6 +115,7 @@ class SDMatte(nn.Module):
         sample = torch.cat([rgb_latent, aux_latent], dim=1).to(cd)
         label_latent = self.unet(sample=sample, trans=trans,
                                  encoder_hidden_states=aux_tokens,
+                                 encoder_hidden_states_2=text_tokens,
                                  coords_embed=coords_embed,
                                  attention_mask=attention_mask,
                                  encoder_attention_mask=enc_mask,

@@ -230,13 +230,16 @@ class MatteUNet(nn.Module):
         return t.permute(0, 2, 3, 1).reshape(b, h * w, c)
 
     def forward(self, *, sample, trans, encoder_hidden_states,
+                encoder_hidden_states_2=None,
                 coords_embed: Optional[dict] = None, attention_mask=None,
                 encoder_attention_mask=None, policy: Policy = FP32,
                 impl: str = "auto"):
         """One U-Net pass with ``timestep`` None (the matting path).
 
         sample (B, 8, h, w) rgb||aux latents; trans (B,) opacity label;
-        encoder_hidden_states (B, L0, C) aux tokens; coords_embed
+        encoder_hidden_states (B, L0, C) aux tokens; encoder_hidden_states_2
+        (B, 77, C) text tokens, the context of each stage whose
+        ``use_encoder_hidden_states_list`` entry is False; coords_embed
         {"bbox_mask_coords": (B, 1280)}; attention_mask (B, h*w) in [0, 1]."""
         cfg = self.cfg
         b, _, h0, w0 = sample.shape
@@ -258,11 +261,9 @@ class MatteUNet(nn.Module):
 
         biases = _BiasPyramid(attention_mask, h0, w0)
         mask_on = tuple(cfg.use_attention_mask_list)
-        if not all(cfg.use_encoder_hidden_states_list):
-            raise NotImplementedError(
-                "text-conditioned gating needs the CLIP text tower, which is "
-                'not ported yet (ROADMAP Queue 1: "Text tower")')
-        ctx = encoder_hidden_states
+        # per-stage [down, mid, up] context: aux tokens, or text tokens
+        ctxs = tuple(encoder_hidden_states if u else encoder_hidden_states_2
+                     for u in cfg.use_encoder_hidden_states_list)
         enc_bias = None
         if encoder_attention_mask is not None:
             enc_bias = (1.0 - encoder_attention_mask.float()) * NEG_BIAS
@@ -270,6 +271,7 @@ class MatteUNet(nn.Module):
         def stage_bias(stage, hh, ww):
             bias_self = biases.at(hh, ww) if mask_on[stage] else None
             bias_cross = None
+            ctx = ctxs[stage]
             if enc_bias is not None and ctx is not None and enc_bias.shape[1] == ctx.shape[1]:
                 bias_cross = enc_bias
             return bias_self, bias_cross
@@ -278,7 +280,7 @@ class MatteUNet(nn.Module):
 
         def transformer(t, x, stage, heads_i):
             bs, bc = stage_bias(stage, x.shape[2], x.shape[3])
-            return t(x, ctx, heads=heads_i, bias_self=bs, bias_cross=bc,
+            return t(x, ctxs[stage], heads=heads_i, bias_self=bs, bias_cross=bc,
                      policy=policy, impl=impl)
 
         x = F.conv2d(self.conv_in, sample, policy=policy, impl=impl)

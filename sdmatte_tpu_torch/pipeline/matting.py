@@ -64,10 +64,14 @@ class MattingPipeline:
 
     ``impl``: "auto" runs the hand kernels on the card (the plain versions
     on the CPU); "plain" runs the plain versions on the card too, for
-    checking the kernels end to end.  Nothing chooses "plain" by itself."""
+    checking the kernels end to end.  Nothing chooses "plain" by itself.
+
+    ``tokenizer`` (models/tokenizer.CLIPTokenizer) turns captions into the
+    text tower's ids; a model whose gating sends a stage to the text tokens
+    needs one at call time."""
 
     def __init__(self, model: SDMatte, *, policy: Policy = FP32, device=None,
-                 impl: str = "auto", vae_chunk: Optional[int] = None,
+                 impl: str = "auto", tokenizer=None, vae_chunk: Optional[int] = None,
                  vae_int8: bool = False, weight_storage: str = "fp",
                  vae_encode_split: Optional[bool] = None,
                  speed_mode: str = "off"):
@@ -81,14 +85,11 @@ class MattingPipeline:
         if speed_mode != "off":
             raise NotImplementedError("the speed modes are not ported yet "
                                       "(ROADMAP Queue 1: \"Remaining meta-arch paths\")")
-        if not all(model.cfg.unet.use_encoder_hidden_states_list):
-            raise NotImplementedError(
-                "text-conditioned gating needs the CLIP text tower, which is "
-                "not ported yet (ROADMAP Queue 1: \"Text tower\")")
         self.device = resolve_device(device)
         self.cfg = model.cfg
         self.policy = policy
         self.impl = impl
+        self.tokenizer = tokenizer
         self.vae_chunk = vae_chunk
         self.vae_encode_split = vae_encode_split
         if vae_int8 or weight_storage == "int8":
@@ -108,10 +109,12 @@ class MattingPipeline:
         pm = imaging.normalize_pm1(pm).to(cd)
         return img.permute(0, 3, 1, 2), pm.permute(0, 3, 1, 2)
 
-    def _heavy(self, img, pm, coords, is_trans, *, aux_type: str):
+    def _heavy(self, img, pm, coords, is_trans, *, aux_type: str, text_ids=None):
         """Preprocessed inputs -> model alpha (B,S,S) fp32 in [0,1]."""
         data = {"image": img, aux_type: pm, AUX_INPUT_COORDS[aux_type]: coords,
                 "is_trans": is_trans}
+        if text_ids is not None:
+            data["text_ids"] = text_ids
         alpha = self.model(data, aux_input_type=aux_type, policy=self.policy,
                            impl=self.impl, vae_chunk=self.vae_chunk,
                            vae_encode_split=self.vae_encode_split)
@@ -148,8 +151,10 @@ class MattingPipeline:
 
     @torch.no_grad()
     def __call__(self, image, prompt_mask, *, options: PipelineOptions,
-                 coords=None):
-        """image (B,H,W,3) or (H,W,3) in [0,1]; prompt_mask (B,H,W) or (H,W).
+                 coords=None, caption: Optional[Sequence[str]] = None):
+        """image (B,H,W,3) or (H,W,3) in [0,1]; prompt_mask (B,H,W) or (H,W);
+        ``caption``: one string per image for the text tower (empty strings
+        by default), read only under text gating.
 
         Returns (alpha (B,H,W), matted (B,H,W,3|4)) as fp32 tensors on the
         pipeline's device."""
@@ -165,8 +170,16 @@ class MattingPipeline:
         coords = torch.as_tensor(coords, dtype=torch.float32).to(self.device)
         is_trans = torch.full((b,), 1.0 if options.is_transparent else 0.0,
                               device=self.device)
+        text_ids = None
+        if not all(self.cfg.unet.use_encoder_hidden_states_list):
+            if self.tokenizer is None:
+                raise ValueError("text-conditioned gating requires a tokenizer")
+            prompts = list(caption) if caption else [""] * b
+            text_ids = torch.as_tensor(self.tokenizer(prompts), dtype=torch.int64,
+                                       device=self.device)
         img_s, pm_s = self._pre(image, prompt_mask, size=options.inference_size)
-        alpha_s = self._heavy(img_s, pm_s, coords, is_trans, aux_type=options.aux_input)
+        alpha_s = self._heavy(img_s, pm_s, coords, is_trans, aux_type=options.aux_input,
+                              text_ids=text_ids)
         return self._post(alpha_s, image, prompt_mask,
                           output_mode=options.output_mode,
                           refine=options.mask_refine,

@@ -231,6 +231,22 @@ def test_k1_tile_edges_on_transposed_views(cuda, shape, biased):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 20, 256, 77, 64), (1, 5, 16384, 77, 64),
+                                   (2, 20, 256, 77, 64)])
+def test_k1_text_cross_attention(cuda, dtype, shape):
+    """K1 at the U-Net's cross-attention onto the 77 text tokens (text
+    gating): Lk = 77 is less than one 128-key tile, unbiased, with q, k and
+    v as the U-Net passes them ((B, L, H, D) memory viewed as (B, H, L, D))."""
+    b, h, lq, lk, d = shape
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(b, n, h, d, generator=g, device=cuda).to(dtype).transpose(1, 2)
+               for n in (lq, lk, lk))
+    _close_attn(flash_attention(q, k, v, scale=d ** -0.5),
+                attention_plain(q, k, v, scale=d ** -0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 1, 1024, 1024, 512), (1, 1, 300, 170, 512)])
 def test_k2_matches_plain(cuda, dtype, shape):
     b, h, lq, lk, d = shape

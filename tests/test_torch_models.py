@@ -140,10 +140,8 @@ def test_full_width_module_has_the_checkpoint_keys():
     with torch.device("meta"):
         model = SDMatte(SDMatteConfig())
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    # the vae.* and unet.* parts of manifest.expected_keys
-    cfg = JaxSDMatteConfig()
-    ref = {k: tuple(v) for k, v in {**manifest.vae_keys(cfg.vae),
-                                    **manifest.unet_keys(cfg.unet)}.items()}
+    # manifest.expected_keys: vae.*, unet.* and text_encoder.*
+    ref = {k: tuple(v) for k, v in manifest.expected_keys(JaxSDMatteConfig()).items()}
     assert ours == ref
 
 

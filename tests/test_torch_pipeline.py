@@ -86,12 +86,12 @@ def test_pipeline_rejects_unknown_options(pipes):
         MattingPipeline(model, device="cpu", speed_mode="fast")
     with pytest.raises(ValueError, match="weight_storage"):
         MattingPipeline(model, device="cpu", weight_storage="int4")
+    # text gating needs a tokenizer to turn captions into ids
     text_gated = dataclasses.replace(model.cfg, unet=dataclasses.replace(
         model.cfg.unet, use_encoder_hidden_states_list=(True, False, True)))
-    with torch.device("meta"):
-        gated = SDMatte(text_gated)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MattingPipeline(gated, device="cpu")
+    gated = MattingPipeline(SDMatte(text_gated), device="cpu")
+    with pytest.raises(ValueError, match="tokenizer"):
+        gated(img, tri, options=PipelineOptions(inference_size=64))
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -126,6 +126,38 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
 
 
+# modules of the user entry points and the loader, which the checks above
+# must reach
+ENTRY_MODULES = {"sdmatte_tpu_torch.cli", "sdmatte_tpu_torch.api.node",
+                 "sdmatte_tpu_torch.api.serve", "sdmatte_tpu_torch.api.comfy_shim",
+                 "sdmatte_tpu_torch.assets.manager", "sdmatte_tpu_torch.checkpoint.loader",
+                 "sdmatte_tpu_torch.checkpoint.safetensors_io",
+                 "sdmatte_tpu_torch.checkpoint.manifest", "sdmatte_tpu_torch.checkpoint.toy",
+                 "sdmatte_tpu_torch.models.clip", "sdmatte_tpu_torch.models.tokenizer",
+                 "sdmatte_tpu_torch.utils.images", "sdmatte_tpu_torch.utils.observability",
+                 "sdmatte_tpu_torch.utils.env"}
+
+
+def test_isolation_checks_see_the_entry_points():
+    assert ENTRY_MODULES <= set(_modules())
+
+
+def test_import_pulls_in_no_optional_package():
+    """Importing every module loads neither ``safetensors`` nor
+    ``transformers`` (the card's machine is not promised to have them) nor
+    Pillow (imported where an image is read or written)."""
+    code = ("import sys, importlib\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('safetensors', 'transformers', 'PIL'))\n"
+            "print(len(bad), bad[:5])\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=PACKAGE.parent, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+
+
 def test_no_file_imports_jax():
     for path in PACKAGE.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -137,4 +169,5 @@ def test_no_file_imports_jax():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "sdmatte_tpu"), (path, name)
+                assert top not in ("jax", "jaxlib", "sdmatte_tpu", "safetensors",
+                                   "transformers"), (path, name)
