@@ -45,7 +45,21 @@ Phases, in order; any failure exits non-zero before the result lines:
      stage's cross-attention onto 77 text tokens, K1 at Lk = 77) with a
      synthetic tokenizer, against its plain versions.  Launch counts are
      asserted on every step
-After phase 6, K1 and SDPA at the text path's shapes by device time
+  7. the other paths of the meta-architecture at full width (bf16, 1024 px,
+     one pipeline on the seeded weights and variants of it on the same
+     model), each step asserting its launch counts and printing its warm
+     time and peak memory: K1, K2 and K3 at the shapes these paths add
+     (batch 9, 64^2 latents, the 512 px encoder); (a) a point prompt (two
+     clicks, N = 4) against the plain versions; (b) nine images through the
+     node at batch 9 (the split encode), each against the plain versions run
+     alone with vae_encode_split=True, and a point_mask request over HTTP
+     against (a); (c) vae_chunk=2 at batch 4 against the unchunked call;
+     (d) speed_mode "fastest" against its plain versions, beside the
+     default; (e) the parity pack on a 2.59 GB bf16 checkpoint under plain
+     key names at --size 512 (every stage OK), then its stage-4 fp32 forward
+     on the plain versions (alpha MAE <= 1e-4).  Alphas are held before
+     mask_refine at MAE <= 1e-2
+After phase 7, K1 and SDPA at the text path's shapes by device time
 (torch.profiler), where an event pair would time the host's work.
 With --profile, one more warm matte of each phase-5 path runs under
 torch.profiler and the device time per kernel name, the device's busy
@@ -1222,6 +1236,392 @@ class EntryPoints:
         log(f"  phase 6 numbers: { {k: round(v, 4) for k, v in self.numbers.items()} }")
 
 
+def point_mask(h: int, w: int, points, radius: float) -> "np.ndarray":
+    """A point prompt's mask: a disk of ``radius`` px around each (x, y)
+    click, the coords normalized to [0, 1]."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w]
+    m = np.zeros((h, w), np.float32)
+    for x, y in zip(points[0::2], points[1::2]):
+        m[np.hypot(yy - y * h, xx - x * w) < radius] = 1.0
+    return m
+
+
+class MetaPaths(EntryPoints):
+    """Phase 7: the paths of the meta-architecture that phases 5 and 6 do
+    not run, at full width, bf16, 1024 px, on one pipeline with the seeded
+    weights (and variants of it on the same model): a point prompt, batch 9
+    (the split encode) through the node and a point request over HTTP,
+    vae_chunk=2 at batch 4, the fastest speed mode, and the parity pack on a
+    full-width checkpoint.  Every step asserts its launch counts and prints
+    its warm time and peak memory; the kernels' alphas are held against the
+    plain versions' (before mask_refine, MAE <= 1e-2)."""
+
+    # two clicks (x1, y1, x2, y2, normalized): N = 4 coords, padded to 4,
+    # 420 channels each (core/embeddings.point_coords_padding)
+    POINTS = (0.45, 0.5, 0.55, 0.35)
+    # The click disks' radius at 1024 px.  The mask biases self-attention at
+    # 128^2 down to 16^2 (the nearest-resized mask); at radius 64 each click
+    # keeps keys at every stage.  At radius 24 the 16^2 stage keeps one key,
+    # so every query there reads that one key's value, and the random-weight
+    # model amplifies bf16 rounding: the plain versions' own bf16 alpha lies
+    # 1.48e-2 from fp32 (PERF.md), above the bf16 bar for any bf16
+    # implementation.  That case is held in fp32 at the whole-model bar.
+    POINT_RADIUS, SINGLE_KEY_RADIUS = 64, 24
+    # (kernel, (B, H, Lq, Lk, D), biased, plain version per batch element)
+    ATTN_SHAPES = [("flash_attention_k1", (9, 5, 16384, 16384, 64), True, True),
+                   ("flash_attention_k2", (9, 1, 16384, 16384, 512), False, True),
+                   ("flash_attention_k2", (2, 1, 4096, 4096, 512), False, False),
+                   ("flash_attention_k2", (1, 1, 4096, 4096, 512), False, False)]
+    # (label, (B, H, W, Cin, Cout), gn, residual)
+    CONV_SHAPES = [("512 px enc 512^2 128->128 gn+res", (2, 512, 512, 128, 128), True, True),
+                   ("512 px enc 256^2 256->256", (2, 256, 256, 256, 256), False, False)]
+
+    def __init__(self, smoke, workdir: str, root: str):
+        super().__init__(smoke, workdir, root)
+        import numpy as np
+        from sdmatte_tpu_torch.utils.images import to_uint8
+        img, tri, opts = smoke.inputs()
+        # the 8-bit values, so that a PNG round trip (the server) is exact
+        self.img = to_uint8(img).astype(np.float32) / 255.0
+        self.tri = to_uint8(tri).astype(np.float32) / 255.0
+        self.pm = point_mask(*tri.shape, self.POINTS, self.POINT_RADIUS)
+        self.raw = dataclasses.replace(opts, mask_refine=False)
+        self.results = {}
+
+    def predicted(self, *, k1=32, k2=2, k3=0, k4=0):
+        from sdmatte_tpu_torch.ops.conv3x3 import K3, K4
+        from sdmatte_tpu_torch.ops.flash_attention import K1, K2
+        return {K1.name: k1, K2.name: k2, K3.name: k3, K4.name: k4}
+
+    def variant(self, **kw):
+        """A pipeline on the shared model (staged already: no copy)."""
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.pipeline import MattingPipeline
+        return MattingPipeline(self.pipe.model, policy=BF16, device=self.dev, **kw)
+
+    def timed(self, label, predicted, fn, reps=3):
+        """fn() once with the counts at 0 (asserted), then ``reps`` warm
+        calls: (first result, median s, peak GiB).  The first call is warm
+        too: every path here runs once before it is timed."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        self.expect(label, predicted)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        median = statistics.median(times)
+        log(f"  [{label}] warm s {[round(t, 4) for t in times]} median {median:.4f}, peak "
+            f"memory {peak:.2f} GiB")
+        self.results[label] = (median, peak)
+        return out, median, peak
+
+    def plain_alpha(self, fn):
+        """fn() on the plain versions; no hand kernel may launch."""
+        self.zero_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        if any(k.launches for k in self.kernels):
+            raise AssertionError("a plain run launched a hand kernel")
+        return out
+
+    def hold(self, label, got, ref, bar=1e-2):
+        mae = float((got.float() - ref.float()).abs().mean())
+        log(f"  [{label}] alpha before mask_refine against the plain versions: MAE "
+            f"{mae:.3e} (bar {bar:g})")
+        if not mae <= bar:
+            raise AssertionError(f"{label}: alpha MAE {mae} against the plain versions > {bar}")
+        return mae
+
+    # -- kernels -----------------------------------------------------------
+    def new_shapes(self):
+        """Each kernel at the shapes this phase gives it that phase 3 does not
+        hold: K1 and K2 at batch 9 (the plain version per batch element, at
+        the first and the last), K2 at the half-size encode and decode (64^2
+        latents), K3 at the 512 px encoder's table shapes."""
+        torch = self.torch
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+        from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+        smoke = self.smoke
+        for name, shape, biased, per_item in self.ATTN_SHAPES:
+            q, k, v, bias, scale = smoke.attn_inputs(shape, biased, torch.bfloat16)
+            got = flash_attention(q, k, v, scale=scale, bias=bias)
+            torch.cuda.synchronize()
+            items = (0, shape[0] - 1) if per_item else (slice(None),)
+            for i in items:
+                sl = slice(i, i + 1) if per_item else i
+                ref = attention_plain(q[sl], k[sl], v[sl], scale=scale,
+                                      bias=None if bias is None else bias[sl])
+                smoke.check(name, f"{shape} {'item ' + str(i) if per_item else ''}", got[sl],
+                            ref, "attn_bf16")
+                del ref
+            del q, k, v, got
+        for label, shape, gn, res in self.CONV_SHAPES:
+            x, wt, b, affine, r = smoke.conv_inputs(shape, gn, res, torch.bfloat16)
+            got = conv3x3(x, wt, b, affine=affine, residual=r)
+            torch.cuda.synchronize()
+            smoke.check("conv3x3", f"{label} {shape}", got,
+                        conv3x3_plain(x, wt, b, affine=affine, residual=r), "conv_bf16")
+            del x, got
+        torch.cuda.empty_cache()
+
+    # -- (a) -------------------------------------------------------------
+    def point(self):
+        import numpy as np
+        from sdmatte_tpu_torch.core.embeddings import point_coords_padding
+        opts = dataclasses.replace(self.raw, aux_input="point_mask")
+        coords = np.asarray([self.POINTS], np.float32)
+        padded, ch = point_coords_padding(coords.shape[1])
+        log(f"  (a) point prompt: {coords.shape[1]} coords, padded to {padded}, {ch} channels "
+            f"each; a {int(self.pm.sum())}-pixel point mask")
+        alpha, _, _ = self.timed("(a) point prompt", self.predicted(k3=11), lambda: self.pipe(
+            self.img, self.pm, options=opts, coords=coords)[0])
+        plain = self.variant(impl="plain")
+        ref = self.plain_alpha(lambda: plain(self.img, self.pm, options=opts, coords=coords)[0])
+        self.hold("(a) point prompt", alpha, ref)
+        base = self.pipe(self.img, self.tri, options=self.raw)[0]
+        log(f"  (a) alpha mean {float(alpha.mean()):.4f}; MAE against the trimap matte "
+            f"{float((alpha - base).abs().mean()):.3e} (printed only: random weights)")
+        self.point_alpha = alpha
+        self.point_fp32(opts, coords, plain)
+
+    def point_fp32(self, opts, coords, plain):
+        """Both radii in fp32, kernels against the plain versions at the
+        whole-model bar (MAE <= 1e-4, tests/test_assembled_parity.py); the
+        bf16 alphas of both paths are printed against fp32's."""
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import FP32
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        from sdmatte_tpu_torch.pipeline import MattingPipeline
+        with torch.device("meta"):
+            model = SDMatte(SDMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        f32 = MattingPipeline(model, policy=FP32, device=self.dev)
+        f32_plain = MattingPipeline(model, policy=FP32, device=self.dev, impl="plain")
+        for radius in (self.POINT_RADIUS, self.SINGLE_KEY_RADIUS):
+            pm = point_mask(*self.tri.shape, self.POINTS, radius)
+            self.zero_counts()
+            got = f32(self.img, pm, options=opts, coords=coords)[0]
+            torch.cuda.synchronize()
+            self.expect(f"(a) fp32, radius {radius}", self.predicted())
+            ref = self.plain_alpha(lambda: f32_plain(self.img, pm, options=opts, coords=coords)[0])
+            mae = float((got - ref).abs().mean())
+            k = self.pipe(self.img, pm, options=opts, coords=coords)[0]
+            p = plain(self.img, pm, options=opts, coords=coords)[0]
+            log(f"  (a) radius {radius}, fp32: kernels against the plain versions MAE "
+                f"{mae:.3e} (bar 1e-4); bf16 (printed only): kernels against plain "
+                f"{float((k - p).abs().mean()):.3e}, kernels against fp32 "
+                f"{float((k - ref).abs().mean()):.3e}, plain against fp32 "
+                f"{float((p - ref).abs().mean()):.3e}")
+            if not mae <= 1e-4:
+                raise AssertionError(f"(a) fp32 point prompt at radius {radius}: MAE {mae} "
+                                     f"between kernels and plain versions > 1e-4")
+        del f32, f32_plain, model
+        torch.cuda.empty_cache()
+
+    # -- (b) -------------------------------------------------------------
+    def batch9(self):
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch.api import node as node_mod
+        imgs = np.stack([np.roll(self.img, 97 * i, axis=1) for i in range(9)])
+        tris = np.stack([np.roll(self.tri, 97 * i, axis=1) for i in range(9)])
+        apply = node_mod.SDMatteApply().apply_matte
+        args = ("SDMatte.safetensors", torch.from_numpy(imgs), torch.from_numpy(tris),
+                self.raw.inference_size, False, "alpha_only", False, 0.8)
+        t0 = time.perf_counter()
+        node_mod.get_pipeline("SDMatte.safetensors")
+        torch.cuda.synchronize()
+        log(f"  (b) node model ready in {time.perf_counter() - t0:.2f} s (phase 6's checkpoint)")
+        alpha, median, _ = self.timed("(b) node batch 9 (split encode)",
+                                      self.predicted(k2=3), lambda: apply(*args)[0], reps=2)
+        log(f"  (b) {median / 9:.4f} s per image at batch 9")
+        if tuple(alpha.shape) != (9,) + self.tri.shape or not bool(torch.isfinite(alpha).all()):
+            raise AssertionError(f"(b) the node returned {tuple(alpha.shape)}")
+        # the plain path holds each image alone with the same split encode
+        # (its (B, H, 16384, 16384) fp32 scores would need ~48 GiB at batch 9)
+        plain = self.variant(impl="plain", vae_encode_split=True)
+        maes = []
+        for i in range(9):
+            ref = self.plain_alpha(lambda: plain(imgs[i], tris[i], options=self.raw)[0])
+            maes.append(float((alpha[i] - ref[0].cpu()).abs().mean()))
+        log(f"  (b) each image against the plain versions alone (vae_encode_split=True): MAE "
+            f"{[float(f'{m:.3e}') for m in maes]} (bar 1e-2)")
+        if not max(maes) <= 1e-2:
+            raise AssertionError(f"(b) a batch-9 alpha differs from its plain version by MAE "
+                                 f"{max(maes)} > 1e-2")
+        del plain
+        node_mod._PIPELINE_CACHE.clear()
+        torch.cuda.empty_cache()
+        self.served_point()
+
+    def served_point(self):
+        import base64
+        import io
+        import threading
+        import urllib.request
+        import numpy as np
+        from PIL import Image
+        from sdmatte_tpu_torch.api import serve as serve_mod
+        from sdmatte_tpu_torch.utils.images import save_png, to_uint8
+
+        def png_b64(a):
+            buf = io.BytesIO()
+            save_png(buf, a)
+            return base64.b64encode(buf.getvalue()).decode()
+
+        payload = {"image": png_b64(self.img), "trimap": png_b64(self.pm),
+                   "prompt_type": "point_mask", "coords": list(self.POINTS),
+                   "mask_refine": False, "inference_size": self.raw.inference_size}
+        httpd = serve_mod.serve(self.pipe, port=0, host="127.0.0.1", window_ms=0.0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/matte"
+        try:
+            self.zero_counts()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, body = r.status, json.loads(r.read())
+            t_req = time.perf_counter() - t0
+            self.expect("(b) served point_mask request", self.predicted(k3=11))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            httpd.service.batcher.shutdown()
+            thread.join(timeout=30)
+        got = np.asarray(Image.open(io.BytesIO(base64.b64decode(body["alpha"]))))
+        want = to_uint8(self.point_alpha[0].cpu().numpy())
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        log(f"  (b) POST point_mask with {len(self.POINTS)} coords: HTTP {status} in "
+            f"{t_req:.4f} s (a worker thread not warmed; server ms {body['ms']}); alpha "
+            f"{got.shape} against (a)'s (8-bit): MAE {d.mean() / 255:.3e}, max {d.max()} steps "
+            f"(bar MAE 1e-2)")
+        if status != 200 or got.shape != self.pm.shape or not d.mean() / 255 <= 1e-2:
+            raise AssertionError("(b) the served point_mask alpha differs from (a)'s")
+
+    # -- (c) -------------------------------------------------------------
+    def chunk(self):
+        import numpy as np
+        imgs = np.stack([np.roll(self.img, 131 * i, axis=0) for i in range(4)])
+        tris = np.stack([np.roll(self.tri, 131 * i, axis=0) for i in range(4)])
+        # encoder: concat batch 8 in four chunks of 2, each the 11 K3 convs of
+        # the table; decoder: two chunks of 2, each 17 table convs at batch 2
+        # (1024^2 128->128 x5, 512^2 256->256 x5, 256^2 512->512 x6 and the
+        # upsampler conv into 256^2); K2 once per chunk (4 + 2)
+        chunked = self.variant(vae_chunk=2)
+        a_c, t_c, p_c = self.timed("(c) vae_chunk=2, batch 4", self.predicted(k2=6, k3=78),
+                                   lambda: chunked(imgs, tris, options=self.raw)[0], reps=2)
+        a_u, t_u, p_u = self.timed("(c) unchunked, batch 4", self.predicted(),
+                                   lambda: self.pipe(imgs, tris, options=self.raw)[0], reps=2)
+        mae = float((a_c - a_u).abs().mean())
+        log(f"  (c) chunked against unchunked: MAE {mae:.3e} (bar 1e-2); {t_c:.4f} s against "
+            f"{t_u:.4f} s per batch, peak {p_c:.2f} against {p_u:.2f} GiB")
+        if not mae <= 1e-2:
+            raise AssertionError(f"(c) vae_chunk=2 differs from the unchunked call by {mae}")
+        plain = self.variant(impl="plain", vae_chunk=2)
+        ref = self.plain_alpha(lambda: plain(imgs[:1], tris[:1], options=self.raw)[0])
+        self.hold("(c) vae_chunk=2, image 0 of 4", a_c[:1], ref)
+
+    # -- (d) -------------------------------------------------------------
+    def fastest(self):
+        # aux and rgb both at 512 px (one concat pass of batch 2: the 7 table
+        # convs of a 512 px encode), the alpha latent decoded at 64^2
+        fast = self.variant(speed_mode="fastest")
+        a_f, t_f, p_f = self.timed("(d) speed_mode fastest", self.predicted(k3=7),
+                                   lambda: fast(self.img, self.tri, options=self.raw)[0])
+        a_d, t_d, p_d = self.timed("(d) default", self.predicted(k3=11),
+                                   lambda: self.pipe(self.img, self.tri, options=self.raw)[0])
+        plain = self.variant(impl="plain", speed_mode="fastest")
+        self.hold("(d) speed_mode fastest", a_f,
+                  self.plain_alpha(lambda: plain(self.img, self.tri, options=self.raw)[0]))
+        log(f"  (d) fastest against the default matte: alpha MAE "
+            f"{float((a_f - a_d).abs().mean()):.3e} (printed only: random weights); "
+            f"{t_f:.4f} s against {t_d:.4f} s, peak {p_f:.2f} against {p_d:.2f} GiB")
+
+    # -- (e) -------------------------------------------------------------
+    def parity(self):
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch import parity_pack
+        from sdmatte_tpu_torch.checkpoint import load_sdmatte_checkpoint, save_checkpoint
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        path = os.path.join(self.dir, "SDMatte_plain_names.safetensors")
+        t0 = time.perf_counter()
+        size = save_checkpoint(self.pipe.model, path, dtype=torch.bfloat16)
+        log(f"  (e) checkpoint under plain key names: {size / 1e9:.3f} GB in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del self.pipe
+        torch.cuda.empty_cache()
+        golden = os.path.join(self.dir, "golden.npz")
+        report = os.path.join(self.dir, "parity_report.json")
+        self.zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rc = parity_pack.run(["--ckpt", path, "--size", "512", "--golden-out", golden,
+                              "--out", report])
+        t_pack = time.perf_counter() - t0
+        # fp32: K3's table is bf16 only; stage 4 is one 512 px forward, stage 5
+        # two 256 px mattes
+        self.expect("(e) parity pack, fp32", self.predicted(k1=96, k2=6))
+        with open(report) as f:
+            stages = json.load(f)["stages"]
+        secs = {k: round(v["seconds"], 2) for k, v in stages.items() if isinstance(v, dict)}
+        log(f"  (e) parity_pack.run at --size 512: exit {rc} in {t_pack:.2f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; seconds per stage {secs}; "
+            f"quality {({k: round(v, 4) for k, v in stages['quality'].items() if k in ('SAD', 'MSE', 'Grad', 'Conn')})}")
+        bad = [k for k, v in stages.items() if isinstance(v, dict) and not v["ok"]]
+        if rc != 0 or bad:
+            raise AssertionError(f"(e) the parity pack failed: exit {rc}, stages {bad}")
+        # stage 4's forward again on the plain versions
+        with torch.device("meta"):
+            model = SDMatte(SDMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        load_sdmatte_checkpoint(model, path)
+        model.eval()
+        img, tri = parity_pack.golden_inputs(512)
+        ref = self.plain_alpha(lambda: parity_pack.golden_dump(model, img, tri, impl="plain"))
+        got = np.load(golden)
+        rel = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
+        mae = float(np.abs(got["alpha"] - ref["alpha"]).mean())
+        log(f"  (e) stage 4 on the kernels against the plain versions, fp32, TF32 off: alpha "
+            f"MAE {mae:.3e} (bar 1e-4); max |diff| / max |ref| per key "
+            f"{ {k: float(f'{v:.3e}') for k, v in rel.items()} }")
+        if not mae <= 1e-4:
+            raise AssertionError(f"(e) the golden alpha on the kernels differs from the plain "
+                                 f"versions' by MAE {mae} > 1e-4")
+
+    def run(self):
+        torch = self.torch
+        t0 = time.perf_counter()
+        self.pipe, _ = self.smoke.pipeline()
+        torch.cuda.synchronize()
+        log(f"  the shared bf16 pipeline (seeded weights) ready in "
+            f"{time.perf_counter() - t0:.1f} s")
+        self.step("kernels at this phase's new shapes", self.new_shapes)
+        self.step("(a) point prompt", self.point)
+        self.step("(b) batch 9 and a served point request", self.batch9)
+        self.step("(c) vae_chunk", self.chunk)
+        self.step("(d) speed mode", self.fastest)
+        self.step("(e) parity pack", self.parity)
+        log(f"  phase 7 (median s, peak GiB): "
+            f"{ {k: (round(t, 4), round(p, 2)) for k, (t, p) in self.results.items()} }")
+
+
 def main() -> int:
     try:
         import torch
@@ -1329,6 +1729,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="sdmatte_smoke_")
     try:
         EntryPoints(smoke, workdir, root).run()
+        log("== 7. the other meta-architecture paths at full width: point prompt, batch 9, "
+            "vae_chunk, speed mode, parity pack")
+        MetaPaths(smoke, workdir, root).run()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     smoke.text_device_times()

@@ -174,8 +174,10 @@ def main(argv=None):
     ap.add_argument("--speed-mode", default="off",
                     choices=["off", "aux_half", "rgb_half", "decode_half",
                              "fast", "fastest"],
-                    help="out-of-parity speed modes (not ported yet: any "
-                         "but 'off' raises)")
+                    help="out-of-parity speed modes: encode the trimap "
+                         "(aux_half) or photo (rgb_half) at half size, decode "
+                         "at half size (decode_half); fast = aux_half + "
+                         "decode_half, fastest = all three; never the default")
     ap.add_argument("--weight-storage", default="fp",
                     choices=["fp", "int8"],
                     help="int8 = weights resident as int8 + per-channel "

@@ -25,3 +25,13 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, *, flip_sin_to_cos: bool = T
     if dim % 2 == 1:
         emb = torch.nn.functional.pad(emb, (0, 1))
     return emb
+
+
+def point_coords_padding(num_coords: int, total: int = 1680) -> tuple[int, int]:
+    """The reference's point-coordinate padding: the smallest length i >= N
+    that divides ``total``, and the embedding width ``total // i``.
+    Returns (padded_len, embed_channels)."""
+    for i in range(num_coords, total + 1):
+        if total % i == 0:
+            return i, total // i
+    raise ValueError(f"no divisor of {total} >= {num_coords}")

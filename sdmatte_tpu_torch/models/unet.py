@@ -2,10 +2,10 @@
 (sdmatte_tpu/models/unet.py).
 
 Parameter names are the checkpoint's under ``unet.``.  Opacity drives the
-time embedding (``timestep`` is None on the matting path), the bbox head adds
-the prompt's coordinate embedding, and the latent-resolution prompt mask
-biases SELF-attention only, as (1 - m) * -10000 nearest-resized to each
-resolution.  Every attention site runs the hand kernel K1 on the card; the
+time embedding (``timestep`` is None on the matting path), the bbox or the
+point head adds the prompt's coordinate embedding, and the latent-resolution
+prompt mask biases SELF-attention only, as (1 - m) * -10000 nearest-resized
+to each resolution.  Every attention site runs the hand kernel K1 on the card; the
 convs are ``torch.nn.functional.conv2d``, as the JAX package leaves them to
 XLA.
 """
@@ -233,14 +233,18 @@ class MatteUNet(nn.Module):
                 encoder_hidden_states_2=None,
                 coords_embed: Optional[dict] = None, attention_mask=None,
                 encoder_attention_mask=None, policy: Policy = FP32,
-                impl: str = "auto"):
+                impl: str = "auto", return_features: bool = False):
         """One U-Net pass with ``timestep`` None (the matting path).
 
         sample (B, 8, h, w) rgb||aux latents; trans (B,) opacity label;
         encoder_hidden_states (B, L0, C) aux tokens; encoder_hidden_states_2
         (B, 77, C) text tokens, the context of each stage whose
         ``use_encoder_hidden_states_list`` entry is False; coords_embed
-        {"bbox_mask_coords": (B, 1280)}; attention_mask (B, h*w) in [0, 1]."""
+        {"bbox_mask_coords": (B, 1280)} or {"point_coords": (B, 1680)};
+        attention_mask (B, h*w) in [0, 1].
+
+        With ``return_features`` (the reference's distillation hooks)
+        returns ``(out, [after down, after mid, after up])``, NCHW."""
         cfg = self.cfg
         b, _, h0, w0 = sample.shape
         ch = list(cfg.block_out_channels)
@@ -251,12 +255,14 @@ class MatteUNet(nn.Module):
                                   downscale_freq_shift=cfg.freq_shift)
         emb = self.time_embedding(op.to(cd), policy)
         if coords_embed:
-            if "bbox_mask_coords" not in coords_embed:
-                raise NotImplementedError(
-                    'point prompts are not ported yet (ROADMAP Queue 1: '
-                    '"Remaining meta-arch paths")')
-            ce = coords_embed["bbox_mask_coords"].reshape(b, -1)
-            emb = emb + self.bbox_embedding(ce.to(cd), policy)
+            if "point_coords" in coords_embed:
+                ce, head = coords_embed["point_coords"], self.point_embedding
+            elif "bbox_mask_coords" in coords_embed:
+                ce, head = coords_embed["bbox_mask_coords"], self.bbox_embedding
+            else:
+                raise ValueError("coords_embed must contain point_coords or "
+                                 "bbox_mask_coords")
+            emb = emb + head(ce.reshape(b, -1).to(cd), policy)
         emb = emb.to(cd)
 
         biases = _BiasPyramid(attention_mask, h0, w0)
@@ -296,10 +302,12 @@ class MatteUNet(nn.Module):
                 x = F.conv2d(blk.downsamplers[0].conv, x, stride=2, policy=policy, impl=impl)
                 skips.append(x)
 
+        features = [x]
         mid = self.mid_block
         x = mid.resnets[0](x, emb, policy, impl)
         x = transformer(mid.attentions[0], x, 1, heads[-1])
         x = mid.resnets[1](x, emb, policy, impl)
+        features.append(x)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
@@ -316,5 +324,7 @@ class MatteUNet(nn.Module):
                 else:
                     x = F.conv2d(up, resize_nearest(x, th, tw), policy=policy, impl=impl)
 
+        features.append(x)
         x = F.gn_silu(self.conv_norm_out, x)
-        return F.conv2d(self.conv_out, x, policy=policy, impl=impl)
+        out = F.conv2d(self.conv_out, x, policy=policy, impl=impl)
+        return (out, features) if return_features else out

@@ -68,7 +68,15 @@ class MattingPipeline:
 
     ``tokenizer`` (models/tokenizer.CLIPTokenizer) turns captions into the
     text tower's ids; a model whose gating sends a stage to the text tokens
-    needs one at call time."""
+    needs one at call time.
+
+    ``vae_chunk`` runs the VAE over the batch in chunks of at most that many
+    images (peak memory for large batches); ``vae_encode_split`` forces
+    (True) or forbids (False) the two-pass encode, which None takes when the
+    concat batch would exceed 16.  ``speed_mode`` (out of parity, never the
+    default): "aux_half" and "rgb_half" encode that input at half size,
+    "decode_half" decodes the alpha latent at half size, "fast" is aux_half
+    + decode_half and "fastest" all three."""
 
     def __init__(self, model: SDMatte, *, policy: Policy = FP32, device=None,
                  impl: str = "auto", tokenizer=None, vae_chunk: Optional[int] = None,
@@ -82,9 +90,6 @@ class MattingPipeline:
                              f"{weight_storage!r}")
         if impl not in ("auto", "plain"):
             raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
-        if speed_mode != "off":
-            raise NotImplementedError("the speed modes are not ported yet "
-                                      "(ROADMAP Queue 1: \"Remaining meta-arch paths\")")
         self.device = resolve_device(device)
         self.cfg = model.cfg
         self.policy = policy
@@ -92,6 +97,7 @@ class MattingPipeline:
         self.tokenizer = tokenizer
         self.vae_chunk = vae_chunk
         self.vae_encode_split = vae_encode_split
+        self.speed_mode = speed_mode
         if vae_int8 or weight_storage == "int8":
             model = copy.deepcopy(model)
             if vae_int8:
@@ -115,9 +121,17 @@ class MattingPipeline:
                 "is_trans": is_trans}
         if text_ids is not None:
             data["text_ids"] = text_ids
+        mode = self.speed_mode
         alpha = self.model(data, aux_input_type=aux_type, policy=self.policy,
                            impl=self.impl, vae_chunk=self.vae_chunk,
-                           vae_encode_split=self.vae_encode_split)
+                           vae_encode_split=self.vae_encode_split,
+                           speed_aux_half=mode in ("aux_half", "fast", "fastest"),
+                           speed_rgb_half=mode in ("rgb_half", "fastest"),
+                           speed_decode_half=mode in ("decode_half", "fast", "fastest"))
+        if isinstance(alpha, tuple):
+            # cfg.use_dis_loss makes the model return (alpha, feature_maps),
+            # a training hook; inference keeps the alpha
+            alpha = alpha[0]
         return alpha.float()[:, 0]
 
     def _post(self, alpha_s, image, prompt_mask, *, output_mode: str,

@@ -145,13 +145,16 @@ def test_full_width_module_has_the_checkpoint_keys():
     assert ours == ref
 
 
-def test_unported_branches_raise(tiny, rng):
+def test_use_aux_input_false_raises(tiny):
+    """The one forward that raises: without the aux latent there is no
+    working path (the reference crashes identically); every other branch of
+    the meta-architecture runs (tests/test_torch_meta_paths.py)."""
     _, _, model = tiny
     data = {"image": torch.zeros(1, 3, 16, 16), "trimap": torch.zeros(1, 1, 16, 16),
             "trimap_coords": torch.zeros(1, 4), "is_trans": torch.zeros(1)}
-    for kwargs in ({"vae_chunk": 1}, {"speed_decode_half": True},
-                   {"return_intermediates": True}, {"vae_encode_split": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model(data, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(data, aux_input_type="point_mask")
+    model.cfg = dataclasses.replace(model.cfg, use_aux_input=False)
+    try:
+        with pytest.raises(NotImplementedError, match="use_aux_input"):
+            model(data)
+    finally:
+        model.cfg = SDMatteConfig.tiny()

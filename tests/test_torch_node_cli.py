@@ -215,6 +215,51 @@ def test_cli_file_mode_matches_jax_cli(models, tmp_path, mode):
         _assert_pngs_match(got, ref)
 
 
+@pytest.mark.parametrize("extra", [
+    ["--prompt-type", "point_mask", "--coords", "0.3,0.4,0.6,0.5"],
+    ["--speed-mode", "fast"],
+], ids=["point_mask", "speed_fast"])
+def test_cli_options_match_jax_cli(models, tmp_path, extra):
+    """A point prompt (two points, the trimap file as its mask) and a speed
+    mode reach the pipeline as in the JAX CLI: the same alpha PNG."""
+    root, _ = models
+    ckpt = str(root / "SDMatte" / "SDMatte.safetensors")
+    img, tri = _write_pair(tmp_path, "cat", h=40, w=56, seed=3)
+    for name, main in (("ours", cli.main), ("jax", jax_cli.main)):
+        rc = main(["--image", img, "--trimap", tri, "--out", str(tmp_path / f"{name}.png"),
+                   "--size", "512", "--ckpt", ckpt, "--cpu"] + extra)
+        assert rc == 0
+    _assert_pngs_match(tmp_path / "ours.png", tmp_path / "jax.png")
+
+
+def test_cli_batch_9_matches_jax_cli(models, tmp_path, monkeypatch):
+    """Nine same-shape pairs at --batch 9 run as one pipeline call of batch
+    9, whose encode is split (concat batch 18 > 16), as in the JAX CLI."""
+    from sdmatte_tpu_torch.pipeline import MattingPipeline
+    root, _ = models
+    ckpt = str(root / "SDMatte" / "SDMatte.safetensors")
+    imgs, tris = tmp_path / "imgs", tmp_path / "tris"
+    imgs.mkdir(), tris.mkdir()
+    for i in range(9):
+        img, tri = _write_pair(tmp_path, f"p{i}", h=24, w=32, seed=20 + i)
+        os.replace(img, imgs / f"p{i}.png"), os.replace(tri, tris / f"p{i}.png")
+    batches = []
+    heavy = MattingPipeline._heavy
+
+    def spy(self, img, *a, **k):
+        batches.append(img.shape[0])
+        return heavy(self, img, *a, **k)
+
+    monkeypatch.setattr(MattingPipeline, "_heavy", spy)
+    for name, main in (("ours", cli.main), ("jax", jax_cli.main)):
+        rc = main(["--image", str(imgs), "--trimap", str(tris), "--out", str(tmp_path / name),
+                   "--size", "512", "--batch", "9", "--ckpt", ckpt, "--cpu"])
+        assert rc == 0
+    assert batches == [9]
+    for i in range(9):
+        _assert_pngs_match(tmp_path / "ours" / f"p{i}.png", tmp_path / "jax" / f"p{i}.png")
+
+
 def test_cli_directory_mode_matches_jax_cli(models, tmp_path):
     root, _ = models
     ckpt = str(root / "SDMatte" / "SDMatte.safetensors")
@@ -257,5 +302,3 @@ def test_cli_argument_errors(tmp_path):
             cli.main(base + extra)
     with pytest.raises(SystemExit):
         cli.main(["--image", str(tmp_path), "--trimap", tri, "--out", "o", "--tiny", "--cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ["--speed-mode", "fast"])

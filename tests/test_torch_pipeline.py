@@ -82,8 +82,6 @@ def test_pipeline_rejects_unknown_options(pipes):
     model = pipe.model
     with pytest.raises(ValueError):
         MattingPipeline(model, device="cpu", speed_mode="turbo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MattingPipeline(model, device="cpu", speed_mode="fast")
     with pytest.raises(ValueError, match="weight_storage"):
         MattingPipeline(model, device="cpu", weight_storage="int4")
     # text gating needs a tokenizer to turn captions into ids
@@ -126,9 +124,11 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
 
 
-# modules of the user entry points and the loader, which the checks above
-# must reach
+# modules of the user entry points, the loader and the parity pack, which
+# the checks above must reach
 ENTRY_MODULES = {"sdmatte_tpu_torch.cli", "sdmatte_tpu_torch.api.node",
+                 "sdmatte_tpu_torch.parity_pack", "sdmatte_tpu_torch.eval",
+                 "sdmatte_tpu_torch.eval.metrics", "sdmatte_tpu_torch.eval.synthetic",
                  "sdmatte_tpu_torch.api.serve", "sdmatte_tpu_torch.api.comfy_shim",
                  "sdmatte_tpu_torch.assets.manager", "sdmatte_tpu_torch.checkpoint.loader",
                  "sdmatte_tpu_torch.checkpoint.safetensors_io",

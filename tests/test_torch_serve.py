@@ -251,6 +251,51 @@ def test_bbox_prompt_over_http(server):
     assert code == 200 and "alpha" in body
 
 
+def test_point_prompt_over_http_matches_jax_server(server, params):
+    """A point_mask request with two points: 200 from both packages'
+    servers on the same weights, alphas within one 8-bit step."""
+    jax_pipe = JaxPipeline(params, JaxSDMatteConfig.tiny(), attn_impl="xla")
+    ref = _Server(jax_pipe, module=jax_serve, window_ms=1.0)
+    try:
+        payload = _request(np.random.default_rng(9), 40, 36, prompt_type="point_mask",
+                           coords=[0.3, 0.4, 0.6, 0.5])
+        (code, body), (ref_code, ref_body) = (_post(s.url + "/v1/matte", payload)
+                                              for s in (server, ref))
+        assert code == ref_code == 200, (body, ref_body)
+        got, want = _decode(body["alpha"]), _decode(ref_body["alpha"])
+        assert got.shape == want.shape == (40, 36)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    finally:
+        ref.close()
+
+
+def test_warmup_runs_batches_above_8(monkeypatch):
+    """--max-batch 9 --warmup: the real warmup runs batches 1..9 (9 is a
+    split encode) on the worker before the server serves (stopped here as
+    soon as the warmup ends)."""
+    seen = {}
+    warmed = threading.Event()
+    real_warmup = MattingPipeline.warmup
+
+    def warmup(self, **kw):
+        try:
+            seen["timings"] = real_warmup(self, **kw)
+        finally:
+            warmed.set()
+        return seen["timings"]
+
+    def fake_serve_forever(self, *a, **k):
+        assert warmed.wait(timeout=120)
+
+    monkeypatch.setattr(MattingPipeline, "warmup", warmup)
+    monkeypatch.setattr(serve_mod.ThreadingHTTPServer, "serve_forever", fake_serve_forever)
+    import sdmatte_tpu_torch.configs as cfgs
+    monkeypatch.setattr(cfgs, "SDMatteConfig", SDMatteConfig.tiny)   # a tiny model
+    assert serve_mod.main(["--random-weights", "--cpu", "--warmup", "64",
+                           "--max-batch", "9", "--port", "0"]) == 0
+    assert sorted(seen["timings"]) == [(64, b) for b in range(1, 10)]
+
+
 def test_overload_and_timeout_over_http():
     """429 when the queue is full, 504 past the deadline."""
     stub = _StubPipeline(per_call_s=1.0)
