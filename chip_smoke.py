@@ -59,6 +59,21 @@ Phases, in order; any failure exits non-zero before the result lines:
      key names at --size 512 (every stage OK), then its stage-4 fp32 forward
      on the plain versions (alpha MAE <= 1e-4).  Alphas are held before
      mask_refine at MAE <= 1e-2
+  8. training, video and the process group at full width (seeded random
+     weights): (a) the fine-tune at the JAX example's full-size line
+     (parallel/train.train_loop: 512 px, batch 4, remat, EMA 0.999, FP32,
+     VAE and text towers frozen, 4 steps), every loss finite, the frozen
+     towers bit-identical, the U-Net changed, no optimizer state for frozen
+     parameters, no hand kernel launched; median step time and peak memory;
+     (b) remat on and off at batch 1: the same loss (rtol 1e-6) and
+     gradients (atol 1e-5, rtol 1e-4); (c) one step of the tiny config on
+     the card against the CPU; (d) a backward through K1, K2, K3, K4 and the
+     channel-split wrapper raises; (e) an 8-frame 1024 px bf16 clip through
+     matte_video (K1 32, K2 2, K3 0; alone, K3 11), each frame against the
+     frame matted alone and against the plain versions (MAE <= 1e-2); (f)
+     NCCL at world size 1 in this process: the data-parallel step equals the
+     plain step and matte_video through a mesh of 1 the call without one
+Phases 3-7 run under torch.inference_mode(); phase 8 trains, so it does not.
 After phase 7, K1 and SDPA at the text path's shapes by device time
 (torch.profiler), where an event pair would time the host's work.
 With --profile, one more warm matte of each phase-5 path runs under
@@ -72,6 +87,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -996,10 +1012,10 @@ class EntryPoints:
         self.node_alpha = alpha
         self.pipe = pipe
 
-    def predicted(self, *, k3):
+    def predicted(self, *, k1=32, k2=2, k3=0, k4=0):
         from sdmatte_tpu_torch.ops.conv3x3 import K3, K4
         from sdmatte_tpu_torch.ops.flash_attention import K1, K2
-        return {K1.name: 32, K2.name: 2, K3.name: k3, K4.name: 0}
+        return {K1.name: k1, K2.name: k2, K3.name: k3, K4.name: k4}
 
     # -- (c) -------------------------------------------------------------
     def server(self):
@@ -1288,11 +1304,6 @@ class MetaPaths(EntryPoints):
         self.pm = point_mask(*tri.shape, self.POINTS, self.POINT_RADIUS)
         self.raw = dataclasses.replace(opts, mask_refine=False)
         self.results = {}
-
-    def predicted(self, *, k1=32, k2=2, k3=0, k4=0):
-        from sdmatte_tpu_torch.ops.conv3x3 import K3, K4
-        from sdmatte_tpu_torch.ops.flash_attention import K1, K2
-        return {K1.name: k1, K2.name: k2, K3.name: k3, K4.name: k4}
 
     def variant(self, **kw):
         """A pipeline on the shared model (staged already: no copy)."""
@@ -1622,6 +1633,344 @@ class MetaPaths(EntryPoints):
             f"{ {k: (round(t, 4), round(p, 2)) for k, (t, p) in self.results.items()} }")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Training(EntryPoints):
+    """Phase 8: training, video and the process group at full width
+    (SDMatteConfig(), seeded random weights).  Training runs the plain
+    versions (no hand kernel has a backward), FP32, with TF32 off as set in
+    phase 1; the video runs the kernels in bf16.  Each step raises on
+    failure."""
+
+    FT_SIZE, FT_BATCH, FT_STEPS, FT_EMA = 512, 4, 4, 0.999
+    VIDEO_SIZE, VIDEO_T = 1024, 8
+    BACKEND = "nccl"
+
+    def __init__(self, smoke, workdir: str, root: str, smi: str):
+        super().__init__(smoke, workdir, root)
+        self.smi = smi
+
+    def model(self, cfg=None, seed=0):
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        with self.torch.device("meta"):
+            model = SDMatte(cfg or SDMatteConfig())
+        return init_random_(model, seed=seed, device=self.dev)
+
+    def loss_cfg(self):
+        from sdmatte_tpu_torch.parallel import train
+        # the fine-tune's terms (sdmatte_tpu_torch/finetune.py)
+        return train.LossConfig(l1=1.0, unknown_l1=1.0, grad_l1=0.5)
+
+    def batch(self, b, size, seed=0):
+        from sdmatte_tpu_torch.parallel.data import CompositeSampler, to_tensors
+        return {k: v.to(self.dev) for k, v in
+                to_tensors(CompositeSampler(size=size, seed=seed).batch(b)).items()}
+
+    # -- (a) -------------------------------------------------------------
+    def finetune(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.parallel import train
+        from sdmatte_tpu_torch.parallel.data import CompositeSampler
+        model = self.model()
+        frozen = {n: p.detach().cpu().clone() for n, p in model.named_parameters()
+                  if n.split(".")[0] in train.FROZEN_TOWERS}
+        unet0 = {n: p.detach().cpu().clone() for n, p in model.unet.named_parameters()}
+        real, times, seen = train.train_step, [], {}
+
+        def timed_step(state, batch, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = real(state, batch, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            seen["state"] = state
+            return loss
+
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        train.train_step = timed_step
+        t0 = time.perf_counter()
+        try:
+            model, losses, ema = train.train_loop(
+                model, steps=self.FT_STEPS, batch_size=self.FT_BATCH,
+                sampler=CompositeSampler(size=self.FT_SIZE, seed=0),
+                learning_rate=train.make_lr_schedule(1e-4, warmup_steps=2,
+                                                     total_steps=self.FT_STEPS),
+                loss_cfg=self.loss_cfg(), remat=True, ema_decay=self.FT_EMA, log_every=1)
+        finally:
+            train.train_step = real
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.expect("(a) fine-tune (plain versions)", self.predicted(k1=0, k2=0))
+        state = seen["state"]
+        bad_frozen = [n for n, p in model.named_parameters()
+                      if n in frozen and not torch.equal(p.detach().cpu(), frozen[n])]
+        changed = sum(not torch.equal(p.detach().cpu(), unet0[n])
+                      for n, p in model.unet.named_parameters())
+        ema_frozen = [n for n, p in ema.named_parameters()
+                      if n in frozen and not torch.equal(p.detach().cpu(), frozen[n])]
+        frozen_ids = {id(p) for n, p in model.named_parameters() if n in frozen}
+        with_state = sum(id(p) in frozen_ids for p in state.optimizer.state)
+        n_unet = len(unet0)
+        median = statistics.median(times)
+        log(f"  (a) full width, FP32 (TF32 off), {self.FT_SIZE} px, batch {self.FT_BATCH}, remat, EMA "
+            f"{self.FT_EMA}, VAE and text towers frozen: losses {[round(x, 5) for x in losses]}; "
+            f"seconds per step {[round(t, 3) for t in times]} median {median:.3f} "
+            f"({self.FT_BATCH / median:.2f} images/s); loop {wall:.1f} s; peak memory "
+            f"{peak:.2f} GiB; {changed} of {n_unet} U-Net tensors changed, frozen towers "
+            f"changed {len(bad_frozen)}, optimizer state for {len(state.optimizer.state)} "
+            f"tensors ({with_state} of them frozen); {self.smi}")
+        if not all(math.isfinite(x) for x in losses) or len(losses) != self.FT_STEPS:
+            raise AssertionError(f"(a) losses {losses}")
+        if bad_frozen or with_state or changed == 0:
+            raise AssertionError(f"(a) frozen tensors changed {bad_frozen[:3]}, frozen tensors "
+                                 f"with optimizer state {with_state}, U-Net tensors changed "
+                                 f"{changed}")
+        self.numbers.update(ft_step_s=median, ft_peak_gib=peak, ft_ema_frozen_drift=len(ema_frozen))
+        del model, ema, state, seen, frozen, unet0
+        torch.cuda.empty_cache()
+
+    # -- (b) -------------------------------------------------------------
+    def remat(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.parallel import train
+        model = self.model()
+        batch = self.batch(1, self.FT_SIZE, seed=1)
+        out, peaks = [], []
+        for remat in (False, True):
+            model.zero_grad(set_to_none=True)
+            torch.cuda.reset_peak_memory_stats()
+            loss = train.matting_loss(model, batch, loss_cfg=self.loss_cfg(), remat=remat)
+            loss.backward()
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            out.append((loss.item(), {n: p.grad for n, p in model.named_parameters()
+                                      if p.grad is not None}))
+            for p in model.parameters():
+                p.grad = None
+        (l0, g0), (l1, g1) = out
+        worst = max((float(((g1[n] - g0[n]).abs() / (1e-5 + 1e-4 * g0[n].abs())).max()), n)
+                    for n in g0)
+        log(f"  (b) full width, batch 1, {self.FT_SIZE} px, FP32: loss without remat {l0:.7f}, with "
+            f"{l1:.7f}; {len(g0)} gradient tensors, largest |diff| / (1e-5 + 1e-4 |ref|) "
+            f"{worst[0]:.3e} ({worst[1]}); peak {peaks[0]:.2f} GiB without remat, "
+            f"{peaks[1]:.2f} GiB with")
+        if g0.keys() != g1.keys() or not abs(l1 - l0) <= 1e-6 * abs(l0) or not worst[0] <= 1.0:
+            raise AssertionError("(b) remat changed the loss or the gradients")
+        self.numbers.update(remat_peak_gib=peaks[1], no_remat_peak_gib=peaks[0])
+        del model, out, g0, g1
+        torch.cuda.empty_cache()
+
+    # -- (c) -------------------------------------------------------------
+    def card_vs_cpu(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.sdmatte import SDMatte
+        from sdmatte_tpu_torch.parallel import train
+        cpu = init_random_(SDMatte(SDMatteConfig.tiny()), seed=0)
+        card = SDMatte(SDMatteConfig.tiny()).to(self.dev)
+        card.load_state_dict(cpu.state_dict())
+        batch = self.batch(2, 64, seed=2)
+        res = []
+        for model, dev in ((cpu, "cpu"), (card, self.dev)):
+            state = train.init_train_state(model, 1e-3)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            loss = train.loss_and_grads(state, b, loss_cfg=self.loss_cfg())
+            res.append((float(loss), {n: p.grad.detach().cpu().double()
+                                      for n, p in model.named_parameters() if p.grad is not None}))
+        (l_cpu, g_cpu), (l_card, g_card) = res
+        rel = {n: float((g_card[n] - g).norm() / (g.norm() + 1e-30)) for n, g in g_cpu.items()}
+        elementwise = sum(bool(((g_card[n] - g).abs() > 1e-5 + 1e-4 * g.abs()).any())
+                          for n, g in g_cpu.items())
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        bad = [n for n, g in g_cpu.items()
+               if float((g_card[n] - g).norm()) > 1e-3 * float(g.norm()) + 1e-5 * g.numel() ** 0.5]
+        log(f"  (c) tiny config, one step, card against CPU: loss {l_card:.7f} vs {l_cpu:.7f} "
+            f"(rtol 1e-5); {len(g_cpu)} gradient tensors, largest ||diff|| / ||cpu|| "
+            f"{worst[1]:.3e} ({worst[0]}); leaves outside the elementwise atol 1e-5 / rtol "
+            f"1e-4 (printed only) {elementwise}")
+        if g_cpu.keys() != g_card.keys() or not abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu) or bad:
+            raise AssertionError(f"(c) the card's step differs from the CPU's: {bad[:3]}")
+
+    # -- (d) -------------------------------------------------------------
+    def no_backward(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_csplit, conv3x3_int8
+        from sdmatte_tpu_torch.ops.flash_attention import flash_attention
+        smoke = self.smoke
+        cases = []
+        for shape in ((1, 5, 4096, 4096, 64), (1, 1, 4096, 4096, 512)):
+            q, k, v, bias, scale = smoke.attn_inputs(shape, shape[-1] == 64, torch.bfloat16)
+            cases.append((f"K{1 if shape[-1] == 64 else 2} {shape}",
+                          lambda q, k, v, bias=bias, scale=scale: flash_attention(
+                              q, k, v, scale=scale, bias=bias), (q, k, v)))
+        x, wt, b, affine, r = smoke.conv_inputs((2, 256, 256, 128, 128), True, True, torch.bfloat16)
+        cases.append(("K3 (2, 256, 256, 128, 128) gn+res",
+                      lambda x, wt, affine=affine, r=r, b=b: conv3x3(x, wt, b, affine=affine,
+                                                                    residual=r), (x, wt)))
+        cases.append(("K3 via the channel split",
+                      lambda x, wt, affine=affine, r=r, b=b: conv3x3_csplit(
+                          x, wt, b, affine=affine, residual=r), (x, wt)))
+        xq, wq, scale_vec, bias, _ = smoke.int8_inputs((2, 256, 256, 128, 128), 1)
+        cases.append(("K4 (2, 256, 256, 128, 128)",
+                      lambda s, xq=xq, wq=wq, bias=bias: conv3x3_int8(xq, wq, s, bias),
+                      (scale_vec,)))
+        for label, fn, tensors in cases:
+            leaves = [t.detach().clone().requires_grad_() for t in tensors]
+            self.zero_counts()
+            out = fn(*leaves)
+            torch.cuda.synchronize()
+            launched = [k.name for k in self.kernels if k.launches]
+            try:
+                out.float().sum().backward()
+            except RuntimeError as e:
+                msg = str(e).splitlines()[0]
+                log(f"  (d) {label}: launched {launched}; backward raises: {msg[:150]}")
+                if "has no backward kernel" not in msg:
+                    raise
+            else:
+                raise AssertionError(f"(d) a backward through {label} did not raise")
+            if len(launched) != 1:
+                raise AssertionError(f"(d) {label} launched {launched}")
+            del out, leaves
+        torch.cuda.empty_cache()
+
+    # -- (e) -------------------------------------------------------------
+    def clip(self):
+        """A T-frame clip, NCHW in [-1, 1]: a soft disk moving across a
+        background of gradients and noise, and its trimaps."""
+        import numpy as np
+        s, t = self.VIDEO_SIZE, self.VIDEO_T
+        rng = np.random.default_rng(0)
+        yy, xx = np.mgrid[0:s, 0:s] / s
+        bg = np.stack([0.3 + 0.4 * yy, 0.5 + 0.3 * xx, 0.4 + 0.2 * yy * xx], 0)
+        frames, tris = [], []
+        for i in range(t):
+            r = np.hypot(yy - 0.5, xx - 0.25 - 0.5 * i / max(t - 1, 1))
+            a = np.clip((0.2 - r) / 0.04 + 0.5, 0, 1)
+            fg = np.stack([0.9 + 0 * a, 0.3 + 0.2 * yy, 0.2 + 0 * a], 0)
+            img = a * fg + (1 - a) * bg + rng.normal(0, 0.03, bg.shape)
+            frames.append(np.clip(img, 0, 1) * 2 - 1)
+            tris.append(np.where(a >= 0.99, 1.0, np.where(a <= 0.01, -1.0, 0.0))[None])
+        torch = self.torch
+        return (torch.tensor(np.asarray(frames), dtype=torch.float32),
+                torch.tensor(np.asarray(tris), dtype=torch.float32))
+
+    def video(self):
+        torch = self.torch
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.ops import quant
+        from sdmatte_tpu_torch.parallel.video import matte_video
+        model = quant.stage_(self.model(), device=self.dev, dtype=torch.bfloat16).eval()
+        frames, tris = self.clip()
+        t = frames.shape[0]
+        matte_video(model, frames, tris, policy=BF16)          # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        alpha = matte_video(model, frames, tris, policy=BF16)
+        torch.cuda.synchronize()
+        t_clip = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        self.expect(f"(e) video, T = {t}", self.predicted(k1=32, k2=2, k3=0))
+        if tuple(alpha.shape) != (t, 1, self.VIDEO_SIZE, self.VIDEO_SIZE) \
+                or not bool(torch.isfinite(alpha).all()):
+            raise AssertionError(f"(e) the clip's alpha is {tuple(alpha.shape)}")
+        alone, plain, t_alone = [], [], []
+        for i in range(t):
+            self.zero_counts()
+            t0 = time.perf_counter()
+            a = matte_video(model, frames[i:i + 1], tris[i:i + 1], policy=BF16)
+            torch.cuda.synchronize()
+            t_alone.append(time.perf_counter() - t0)
+            self.expect(f"(e) frame {i} alone, T = 1", self.predicted(k1=32, k2=2, k3=11))
+            alone.append(float((alpha[i] - a[0]).abs().mean()))
+            self.zero_counts()
+            p = matte_video(model, frames[i:i + 1], tris[i:i + 1], policy=BF16, impl="plain")
+            torch.cuda.synchronize()
+            if any(k.launches for k in self.kernels):
+                raise AssertionError("(e) the plain run launched a hand kernel")
+            plain.append(float((alpha[i] - p[0]).abs().mean()))
+        log(f"  (e) video, {t} frames at {self.VIDEO_SIZE} px, bf16: {t_clip:.4f} s per clip, "
+            f"{t_clip / t:.4f} s per frame (one frame alone: median "
+            f"{statistics.median(t_alone):.4f} s), peak memory {peak:.2f} GiB; per frame, "
+            f"alpha MAE against the frame matted alone {[float(f'{m:.2e}') for m in alone]}, "
+            f"against the plain versions {[float(f'{m:.2e}') for m in plain]} (bar 1e-2); "
+            f"{self.smi}")
+        if not max(alone + plain) <= 1e-2:
+            raise AssertionError(f"(e) a frame's alpha differs by MAE {max(alone + plain)} > 1e-2")
+        self.numbers.update(video_s_per_frame=t_clip / t, video_peak_gib=peak)
+        self.video_model = model
+
+    # -- (f) -------------------------------------------------------------
+    def process_group(self):
+        import copy
+        torch = self.torch
+        import torch.distributed as dist
+        from sdmatte_tpu_torch.configs import SDMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.parallel import mesh, train
+        from sdmatte_tpu_torch.parallel.video import matte_video
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                          WORLD_SIZE="1", RANK="0")
+        if not mesh.distributed_init(backend=self.BACKEND):
+            raise AssertionError("(f) distributed_init did not start the process group")
+        try:
+            m = mesh.make_mesh()
+            model = self.model(SDMatteConfig.tiny())
+            twin = copy.deepcopy(model)
+            batch = self.batch(2, 64, seed=2)
+            states = [train.init_train_state(x, 1e-3) for x in (model, twin)]
+            loss_dp = float(train.make_sharded_train_step(m, loss_cfg=self.loss_cfg())(
+                states[0], batch))
+            loss = float(train.train_step(states[1], batch, loss_cfg=self.loss_cfg()))
+            diff = max(float((a - b).abs().max()) for a, b in zip(
+                model.state_dict().values(), twin.state_dict().values()))
+            frames, tris = self.clip()
+            self.zero_counts()
+            got = matte_video(self.video_model, frames[:2], tris[:2], mesh=m, policy=BF16)
+            ref = matte_video(self.video_model, frames[:2], tris[:2], policy=BF16)
+            torch.cuda.synchronize()
+            vdiff = float((got - ref).abs().max())
+            log(f"  (f) {dist.get_backend()} at world size {dist.get_world_size()} "
+                f"({mesh.data_axes(m)} mesh): the data-parallel step's loss {loss_dp:.7f} "
+                f"against the plain step's {loss:.7f}, parameters max |diff| {diff:.3e}; "
+                f"matte_video of 2 frames through the mesh against without it: max |diff| "
+                f"{vdiff:.3e}")
+            # the same math twice, with cuDNN's deterministic algorithms
+            if not (abs(loss_dp - loss) <= 1e-6 * abs(loss) and diff <= 1e-6
+                    and vdiff <= 1e-2):
+                raise AssertionError("(f) the process group changed a result")
+        finally:
+            dist.destroy_process_group()
+        del self.video_model
+        torch.cuda.empty_cache()
+
+    def run(self):
+        torch = self.torch
+        self.step("(a) fine-tune", self.finetune)
+        # cuDNN's deterministic algorithms, so that two evaluations of the
+        # same math are bitwise equal (remat recomputes, (f) runs twice)
+        torch.backends.cudnn.deterministic = True
+        self.step("(b) remat", self.remat)
+        self.step("(c) the card against the CPU", self.card_vs_cpu)
+        self.step("(d) no backward through a kernel", self.no_backward)
+        self.step("(e) video", self.video)
+        self.step("(f) process group", self.process_group)
+        log(f"  phase 8 numbers: { {k: round(v, 4) for k, v in self.numbers.items()} } "
+            f"({self.smi})")
+
+
 def main() -> int:
     try:
         import torch
@@ -1694,47 +2043,54 @@ def main() -> int:
 
     smoke = Smoke(torch)
     smoke.profile_on = "--profile" in sys.argv[1:]
-    log("== 3. kernels against their plain versions")
-    smoke.check_attention()
-    smoke.check_conv()
-    smoke.check_csplit()
-    smoke.check_int8_conv()
+    # Phases 3-7 infer only: inference mode keeps every tensor they make out
+    # of autograd (the pipeline and the parity pack run under no_grad anyway)
+    with torch.inference_mode():
+        log("== 3. kernels against their plain versions")
+        smoke.check_attention()
+        smoke.check_conv()
+        smoke.check_csplit()
+        smoke.check_int8_conv()
 
-    log("== 4. timing (CUDA events, warm, median)")
-    rows = smoke.time_kernels()
+        log("== 4. timing (CUDA events, warm, median)")
+        rows = smoke.time_kernels()
 
-    log("== 5. end to end: full width, bf16, 1024 px (with --profile, a profile of one "
-        "more warm matte follows each path's timings)")
-    n_int8 = sum(n for *_, n in INT8_SHAPES)
-    paths = {
-        "default": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0}, {}),
-        "vae_int8": ({K1.name: 32, K2.name: 2, K3.name: 0, K4.name: n_int8},
-                     {"vae_int8": True}),
-        "int8 storage": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0},
-                         {"weight_storage": "int8"}),
-    }
-    results = {}
-    for label, (predicted, kw) in paths.items():
-        results[label] = smoke.matte(label, predicted, **kw)
-    base = results["default"]
-    for label, (_, median, peak, alpha_raw) in results.items():
-        mae = float((alpha_raw.float() - base[3].float()).abs().mean())
-        log(f"  {label:14s} warm median {median:.4f} s (default {base[1]:.4f} s), peak "
-            f"{peak:.2f} GiB (default {base[2]:.2f} GiB); alpha MAE vs the default bf16 "
-            f"matte before mask_refine {mae:.3e} (printed only: random weights)")
+        log("== 5. end to end: full width, bf16, 1024 px (with --profile, a profile of one "
+            "more warm matte follows each path's timings)")
+        n_int8 = sum(n for *_, n in INT8_SHAPES)
+        paths = {
+            "default": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0}, {}),
+            "vae_int8": ({K1.name: 32, K2.name: 2, K3.name: 0, K4.name: n_int8},
+                         {"vae_int8": True}),
+            "int8 storage": ({K1.name: 32, K2.name: 2, K3.name: 11, K4.name: 0},
+                             {"weight_storage": "int8"}),
+        }
+        results = {}
+        for label, (predicted, kw) in paths.items():
+            results[label] = smoke.matte(label, predicted, **kw)
+        base = results["default"]
+        for label, (_, median, peak, alpha_raw) in results.items():
+            mae = float((alpha_raw.float() - base[3].float()).abs().mean())
+            log(f"  {label:14s} warm median {median:.4f} s (default {base[1]:.4f} s), peak "
+                f"{peak:.2f} GiB (default {base[2]:.2f} GiB); alpha MAE vs the default bf16 "
+                f"matte before mask_refine {mae:.3e} (printed only: random weights)")
 
-    log("== 6. entry points at full width: checkpoint, node, server, CLI, text path")
-    import shutil
-    import tempfile
-    workdir = tempfile.mkdtemp(prefix="sdmatte_smoke_")
-    try:
-        EntryPoints(smoke, workdir, root).run()
-        log("== 7. the other meta-architecture paths at full width: point prompt, batch 9, "
-            "vae_chunk, speed mode, parity pack")
-        MetaPaths(smoke, workdir, root).run()
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    smoke.text_device_times()
+        log("== 6. entry points at full width: checkpoint, node, server, CLI, text path")
+        import shutil
+        import tempfile
+        workdir = tempfile.mkdtemp(prefix="sdmatte_smoke_")
+        try:
+            EntryPoints(smoke, workdir, root).run()
+            log("== 7. the other meta-architecture paths at full width: point prompt, batch 9, "
+                "vae_chunk, speed mode, parity pack")
+            MetaPaths(smoke, workdir, root).run()
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        smoke.text_device_times()
+
+    log("== 8. training, video and the process group at full width: fine-tune, remat, the "
+        "card against the CPU, no backward through a kernel, video, NCCL at world size 1")
+    Training(smoke, workdir, root, smi).run()
 
     record = []
     for kern, path, rate in ((K1, "default", BF16_FLOPS), (K2, "default", BF16_FLOPS),

@@ -122,15 +122,20 @@ def group_norm_stats(p: nn.GroupNorm, x: torch.Tensor):
 
 def group_norm(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm with fp32 statistics and an fp32 apply, written in the
-    input's dtype by one pass."""
+    input's dtype by one pass (a differentiable pass in the promoted dtype,
+    then cast, when autograd records: an ``out=`` op has no gradient)."""
     a, d = group_norm_stats(p, x)
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad):
+        return torch.addcmul(d[:, :, None, None], x, a[:, :, None, None]).to(x.dtype)
     return torch.addcmul(d[:, :, None, None], x, a[:, :, None, None],
                          out=torch.empty_like(x))
 
 
 def gn_silu(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """silu(GroupNorm(x)), the SiLU in place on the norm's output."""
-    return tF.silu(group_norm(p, x), inplace=True)
+    """silu(GroupNorm(x)), the SiLU in place on the norm's output unless
+    autograd records it."""
+    y = group_norm(p, x)
+    return tF.silu(y, inplace=not y.requires_grad)
 
 
 def gn_silu_conv2d(p_norm: nn.GroupNorm, p_conv: nn.Conv2d, x: torch.Tensor, *,

@@ -90,7 +90,7 @@ class SDMatte(nn.Module):
                 vae_encode_split: Optional[bool] = None,
                 speed_aux_half: bool = False, speed_rgb_half: bool = False,
                 speed_decode_half: bool = False,
-                return_intermediates: bool = False):
+                return_intermediates: bool = False, remat: bool = False):
         """data (NCHW tensors): image (B, 3, S, S) in [-1, 1]; <aux_type>
         (B, 1, S, S) in [-1, 1]; <aux>_coords (B, 4), or (B, N) for points;
         is_trans (B,); text_ids (B, 77) token ids, needed only under text
@@ -99,7 +99,8 @@ class SDMatte(nn.Module):
         Returns alpha (B, 1, S, S) fp32 in [0, 1]; with
         ``return_intermediates`` (alpha, dict of rgb_latent, aux_latent,
         aux_tokens, unet_out, decoded and feature_maps), else under
-        ``cfg.use_dis_loss`` (alpha, feature_maps)."""
+        ``cfg.use_dis_loss`` (alpha, feature_maps).  ``remat``
+        rematerialises the U-Net's blocks on the backward pass (training)."""
         cfg = self.cfg
         aux_type = aux_input_type or cfg.aux_input
         rgb = data["image"]
@@ -174,7 +175,8 @@ class SDMatte(nn.Module):
                         coords_embed=coords_embed,
                         attention_mask=attention_mask,
                         encoder_attention_mask=enc_mask,
-                        policy=policy, impl=impl, return_features=want_features)
+                        policy=policy, impl=impl, return_features=want_features,
+                        remat=remat)
         label_latent, feature_maps = out if want_features else (out, None)
 
         # -- decode + alpha head ------------------------------------------

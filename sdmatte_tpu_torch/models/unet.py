@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import UNetConfig
 from ..core import nn as F
@@ -233,7 +234,8 @@ class MatteUNet(nn.Module):
                 encoder_hidden_states_2=None,
                 coords_embed: Optional[dict] = None, attention_mask=None,
                 encoder_attention_mask=None, policy: Policy = FP32,
-                impl: str = "auto", return_features: bool = False):
+                impl: str = "auto", return_features: bool = False,
+                remat: bool = False):
         """One U-Net pass with ``timestep`` None (the matting path).
 
         sample (B, 8, h, w) rgb||aux latents; trans (B,) opacity label;
@@ -244,7 +246,12 @@ class MatteUNet(nn.Module):
         attention_mask (B, h*w) in [0, 1].
 
         With ``return_features`` (the reference's distillation hooks)
-        returns ``(out, [after down, after mid, after up])``, NCHW."""
+        returns ``(out, [after down, after mid, after up])``, NCHW.
+
+        ``remat`` recomputes each resnet and transformer block's interior on
+        the backward pass instead of keeping it (``torch.utils.checkpoint``,
+        sdmatte_tpu/models/unet.py:113-125): less activation memory for about
+        a third more block compute.  Inference never pays for it."""
         cfg = self.cfg
         b, _, h0, w0 = sample.shape
         ch = list(cfg.block_out_channels)
@@ -284,17 +291,25 @@ class MatteUNet(nn.Module):
 
         heads = list(cfg.attention_head_dim)
 
+        def resnet(res, x):
+            if remat:
+                return checkpoint(res, x, emb, policy, impl, use_reentrant=False)
+            return res(x, emb, policy, impl)
+
         def transformer(t, x, stage, heads_i):
             bs, bc = stage_bias(stage, x.shape[2], x.shape[3])
-            return t(x, ctxs[stage], heads=heads_i, bias_self=bs, bias_cross=bc,
-                     policy=policy, impl=impl)
+
+            def run(x):
+                return t(x, ctxs[stage], heads=heads_i, bias_self=bs, bias_cross=bc,
+                         policy=policy, impl=impl)
+            return checkpoint(run, x, use_reentrant=False) if remat else run(x)
 
         x = F.conv2d(self.conv_in, sample, policy=policy, impl=impl)
         skips = [x]
         n = len(ch)
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                x = res(x, emb, policy, impl)
+                x = resnet(res, x)
                 if blk.attentions is not None:
                     x = transformer(blk.attentions[j], x, 0, heads[i])
                 skips.append(x)
@@ -304,15 +319,15 @@ class MatteUNet(nn.Module):
 
         features = [x]
         mid = self.mid_block
-        x = mid.resnets[0](x, emb, policy, impl)
+        x = resnet(mid.resnets[0], x)
         x = transformer(mid.attentions[0], x, 1, heads[-1])
-        x = mid.resnets[1](x, emb, policy, impl)
+        x = resnet(mid.resnets[1], x)
         features.append(x)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
                 x = torch.cat([x, skips.pop()], dim=1)
-                x = res(x, emb, policy, impl)
+                x = resnet(res, x)
                 if blk.attentions is not None:
                     x = transformer(blk.attentions[j], x, 2, heads[n - 1 - i])
             if i < n - 1:

@@ -8,6 +8,10 @@ is.  Nothing is built when the package is
 imported: a :class:`Kernel` compiles its library on its first launch, and
 :func:`build` compiles every stale library at once, one ``nvcc`` process per
 source, all started together.
+
+Every launch runs inside :func:`forward_only`: no kernel here has a
+backward, and a launch writes a fresh tensor, so without that node a
+gradient through a kernel would be dropped without a word.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Callable, Sequence
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -133,8 +139,29 @@ class Kernel:
         self.launches += 1
 
 
+class _ForwardOnly(torch.autograd.Function):
+    """A launch as an autograd node whose backward raises."""
+
+    @staticmethod
+    def forward(ctx, name, launch, *tensors):
+        ctx.name = name
+        return launch(*tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"{ctx.name} has no backward kernel: the port, like the JAX package, "
+            f"differentiates only the plain versions, so training runs with "
+            f"impl=\"plain\"")
+
+
+def forward_only(name: str, launch: Callable, *tensors):
+    """``launch(*tensors)`` (None allowed among them), recorded so that a
+    backward through its output raises a RuntimeError naming kernel ``name``."""
+    return _ForwardOnly.apply(name, launch, *tensors)
+
+
 def stream_handle(device) -> ctypes.c_void_p:
-    import torch
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -24,7 +24,7 @@ import ctypes
 import torch
 import torch.nn.functional as tF
 
-from ._build import Kernel, ptr, stream_handle
+from ._build import Kernel, forward_only, ptr, stream_handle
 
 K3 = Kernel("conv3x3", "conv3x3", "sdm_conv3x3",
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -104,6 +104,12 @@ def conv3x3(x, w, b=None, *, affine=None, residual=None):
                     or not t.is_contiguous() or t.device != x.device:
                 raise ValueError("conv3x3: affine must be two contiguous "
                                  "(B, Cin) fp32 tensors")
+    return forward_only(K3.name, _launch_k3, x, w, b, a, d, residual)
+
+
+def _launch_k3(x, w, b, a, d, residual):
+    bsz, cin, h, wd = x.shape
+    cout = w.shape[0]
     w_nhwc = w.permute(0, 2, 3, 1).contiguous()
     bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
     # the bf16 kernel reads x and w by TMA and bias and residual in 16-byte
@@ -224,6 +230,14 @@ def conv3x3_int8(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
                          f"padding {padding}")
     if not xq.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("conv3x3_int8: x must be channels_last")
+    return forward_only(K4.name, lambda xq, wq, scale_vec, b: _launch_k4(
+        xq, wq, scale_vec, b, stride, (pt, pb, pl, pr), out_dtype), xq, wq, scale_vec, b)
+
+
+def _launch_k4(xq, wq, scale_vec, b, stride, pads, out_dtype):
+    pt, pb, pl, pr = pads
+    bsz, cin, h, w = xq.shape
+    cout = wq.shape[0]
     ho, wo = _out_size(h, pt, pb, stride), _out_size(w, pl, pr, stride)
     # the wgmma kernels read x and w by TMA from 16-byte aligned bases
     xq, w_nhwc = _aligned16(xq), _aligned16(wq.permute(0, 2, 3, 1).contiguous())

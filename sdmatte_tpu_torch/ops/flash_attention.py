@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ._build import Kernel, ptr, stream_handle
+from ._build import Kernel, forward_only, ptr, stream_handle
 
 _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -93,6 +93,13 @@ def flash_attention(q, k, v, *, scale: float, bias=None):
         kernel = K2
     else:
         raise ValueError(f"flash_attention: no kernel for head dim {d}")
+    return forward_only(kernel.name, lambda q, k, v, bias: _launch(kernel, q, k, v, bias, scale),
+                        q, k, v, bias)
+
+
+def _launch(kernel, q, k, v, bias, scale):
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
 
     def strides(t):

@@ -387,3 +387,139 @@ def test_csplit_on_the_card_matches_direct(cuda, fuse_sum):
     r = torch.randn(2, 128, 48, 40, generator=g, device=cuda).contiguous(memory_format=cl)
     _close(conv3x3_csplit(x, wt, bias, affine=affine, residual=r, fuse_sum=fuse_sum),
            conv3x3_plain(x, wt, bias, affine=affine, residual=r), 5e-5, 1e-4)
+
+
+# ------------------------------------------ no gradient through a kernel ---
+#
+# A launch writes a fresh tensor, so each one runs inside
+# ops/_build.forward_only, whose backward raises: no kernel has a backward
+# (in the JAX package neither), and training runs the plain versions.
+
+def _kernel_calls(device, dtype, launch):
+    """name -> (fn, tensors) for K1, K2, K3, K4 and the channel-split
+    wrapper, every floating input requiring grad; ``launch`` decides what
+    computes: the public wrappers, or the plain versions standing in for
+    the launches on the CPU."""
+    g = torch.Generator(device=device).manual_seed(6)
+    cl = torch.channels_last
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=device) * scale).to(dtype)
+
+    def attn(d):
+        q, k, v = (rnd(1, 2 if d == 64 else 1, 128, d) for _ in range(3))
+        bias = (torch.rand(1, 128, generator=g, device=device) < 0.5).float() * -10000.0
+        return (lambda q, k, v: launch("attention", q, k, v, d ** -0.5, bias)), (q, k, v)
+
+    x = rnd(1, 64, 12, 10).contiguous(memory_format=cl)
+    w = rnd(64, 64, 3, 3, scale=1 / 24.0)
+    b = torch.randn(64, generator=g, device=device) * 0.1
+    xq = torch.randint(-127, 128, (1, 16, 12, 10), generator=g, device=device,
+                       dtype=torch.int8).contiguous(memory_format=cl)
+    wq = torch.randint(-127, 128, (8, 16, 3, 3), generator=g, device=device,
+                       dtype=torch.int8).contiguous(memory_format=cl)
+    scale = torch.rand(8, generator=g, device=device) * 1e-3 + 1e-4
+    # the split halves Cin: 64 per half, the bf16 kernel's channel chunk
+    x2 = rnd(1, 128, 12, 10).contiguous(memory_format=cl)
+    w2 = rnd(64, 128, 3, 3, scale=1 / 34.0)
+    calls = {
+        "flash_attention_k1": attn(64),
+        "flash_attention_k2": attn(512),
+        "conv3x3": ((lambda x, w, b: launch("conv3x3", x, w, b)), (x, w, b)),
+        "conv3x3_int8": ((lambda s: launch("conv3x3_int8", xq, wq, s)), (scale,)),
+        "conv3x3 (channel split)": ((lambda x, w, b: launch("csplit", x, w, b)), (x2, w2, b)),
+    }
+    for _, tensors in calls.values():
+        for t in tensors:
+            t.requires_grad_()
+    return calls
+
+
+def _wrappers(op, *args):
+    if op == "attention":
+        q, k, v, scale, bias = args
+        return flash_attention(q, k, v, scale=scale, bias=bias)
+    if op == "conv3x3":
+        return conv3x3(*args)
+    if op == "csplit":
+        return conv3x3_csplit(*args)
+    xq, wq, s = args
+    return conv3x3_int8(xq, wq, s, out_dtype=torch.float32)
+
+
+def _plain(op, *args):
+    if op == "attention":
+        q, k, v, scale, bias = args
+        return attention_plain(q, k, v, scale=scale, bias=bias)
+    if op in ("conv3x3", "csplit"):
+        return conv3x3_plain(*args)
+    xq, wq, s = args
+    return conv3x3_int8_plain(xq, wq, s, out_dtype=torch.float32)
+
+
+KERNEL_CALLS = ["flash_attention_k1", "flash_attention_k2", "conv3x3", "conv3x3_int8",
+                "conv3x3 (channel split)"]
+
+
+@pytest.mark.parametrize("name", KERNEL_CALLS)
+def test_forward_only_is_the_launch_and_refuses_a_backward(name):
+    """The autograd node each launch runs in, driven on the CPU with the
+    plain version standing in for the launch: the forward is the launch's
+    result, and a backward through it raises and names the kernel."""
+    from sdmatte_tpu_torch.ops._build import forward_only
+    fn, tensors = _kernel_calls("cpu", torch.float32, _plain)[name]
+    kernel = name.split(" ")[0]
+    got = forward_only(kernel, fn, *tensors)
+    torch.testing.assert_close(got, fn(*tensors), rtol=0, atol=0)
+    assert got.requires_grad
+    with pytest.raises(RuntimeError, match=rf"{kernel} has no backward kernel.*impl=\"plain\""):
+        got.float().square().sum().backward()
+    with torch.no_grad():
+        assert forward_only(kernel, fn, *tensors).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", KERNEL_CALLS)
+def test_backward_through_a_kernel_raises_on_the_card(cuda, name):
+    fn, tensors = _kernel_calls(cuda, torch.bfloat16, _wrappers)[name]
+    out = fn(*tensors)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match=f"{name.split(' ')[0]} has no backward kernel"):
+        out.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_data_parallel_and_video_at_world_size_1_on_nccl(cuda, tmp_path):
+    """In-process NCCL at world size 1: the data-parallel step equals the
+    plain step, and matte_video through a mesh of 1 equals the call without
+    one (the tiny config runs the plain versions: its heads are 8 wide)."""
+    import copy
+    import socket
+    import torch.distributed as dist
+    from sdmatte_tpu_torch.configs import SDMatteConfig
+    from sdmatte_tpu_torch.models.init import init_random_
+    from sdmatte_tpu_torch.models.sdmatte import SDMatte
+    from sdmatte_tpu_torch.parallel import mesh, train
+    from sdmatte_tpu_torch.parallel.data import CompositeSampler, to_tensors
+    from sdmatte_tpu_torch.parallel.video import matte_video
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert mesh.distributed_init(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        m = mesh.make_mesh()
+        model = init_random_(SDMatte(SDMatteConfig.tiny()), seed=0).to(cuda)
+        twin = copy.deepcopy(model)
+        batch = {k: v.to(cuda) for k, v in to_tensors(CompositeSampler(size=64).batch(2)).items()}
+        states = [train.init_train_state(x, 1e-3) for x in (model, twin)]
+        loss_dp = train.make_sharded_train_step(m)(states[0], batch)
+        loss = train.train_step(states[1], batch)
+        torch.testing.assert_close(loss_dp, loss, rtol=1e-6, atol=0)
+        for (n, a), b in zip(model.named_parameters(), twin.parameters()):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=n)
+        frames = batch["image"]
+        got = matte_video(model, frames, batch["trimap"], mesh=m, impl="plain")
+        ref = matte_video(model, frames, batch["trimap"], impl="plain")
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    finally:
+        dist.destroy_process_group()

@@ -43,11 +43,24 @@ def _no_network(url, dst, progress=True):
     raise AssertionError(f"a test tried to download {url}")
 
 
+def _no_native_reader(path):
+    raise OSError("the native reader is not used here")
+
+
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
     """A models directory with SDMatte/SDMatte.safetensors and the config
     directory, registered with both packages' shims (fresh registries,
-    restored afterwards)."""
+    restored afterwards).
+
+    The JAX package reads the checkpoint through the ``safetensors``
+    package: its native reader (sdmatte_tpu/runtime/fast_safetensors.py)
+    hands out views that outlive their mapping once the dict that owns it
+    is dropped, and the JAX pipeline's staging then read freed pages and
+    crashed the test process now and then (a segfault in
+    ``MattingPipeline.__init__``'s ``tree_map_with_path``, under
+    ``-n 6 --dist loadfile``)."""
+    from sdmatte_tpu.runtime import fast_safetensors
     root = tmp_path_factory.mktemp("models")
     (root / "SDMatte").mkdir()
     cfg = _cfg(configs.SDMatteConfig.tiny())
@@ -62,6 +75,7 @@ def models(tmp_path_factory):
             registry.models_dir = str(root)
             mp.setattr(shim, "_registry", registry)
         mp.setattr(manager, "_default_fetch", _no_network)
+        mp.setattr(fast_safetensors, "read", _no_native_reader)
         yield root, model
     node._PIPELINE_CACHE.clear()
     jax_node._PIPELINE_CACHE.clear()

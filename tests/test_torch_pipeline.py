@@ -124,9 +124,13 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
 
 
-# modules of the user entry points, the loader and the parity pack, which
-# the checks above must reach
-ENTRY_MODULES = {"sdmatte_tpu_torch.cli", "sdmatte_tpu_torch.api.node",
+# modules of the user entry points, the loader, the parity pack and the
+# training, video and multi-device stack, which the checks above must reach
+ENTRY_MODULES = {"sdmatte_tpu_torch.finetune", "sdmatte_tpu_torch.parallel",
+                 "sdmatte_tpu_torch.parallel.train", "sdmatte_tpu_torch.parallel.data",
+                 "sdmatte_tpu_torch.parallel.mesh", "sdmatte_tpu_torch.parallel.checkpointing",
+                 "sdmatte_tpu_torch.parallel.video",
+                 "sdmatte_tpu_torch.cli", "sdmatte_tpu_torch.api.node",
                  "sdmatte_tpu_torch.parity_pack", "sdmatte_tpu_torch.eval",
                  "sdmatte_tpu_torch.eval.metrics", "sdmatte_tpu_torch.eval.synthetic",
                  "sdmatte_tpu_torch.api.serve", "sdmatte_tpu_torch.api.comfy_shim",
