@@ -73,7 +73,29 @@ Phases, in order; any failure exits non-zero before the result lines:
      frame matted alone and against the plain versions (MAE <= 1e-2); (f)
      NCCL at world size 1 in this process: the data-parallel step equals the
      plain step and matte_video through a mesh of 1 the call without one
-Phases 3-7 run under torch.inference_mode(); phase 8 trains, so it does not.
+  9. (run after phase 7, while its work directory exists) the ComfyUI host
+     path at full width (SDMatteConfig(), bf16) on phase 6's checkpoint,
+     under the bundled workflow's checkpoint name: (a) in a subprocess, the
+     package loaded as ComfyUI loads a custom node (its __init__.py under a
+     foreign module name, stub folder_paths and comfy.model_management on
+     the card): the registered class must be the port's SDMatteApply, no
+     module of jax or sdmatte_tpu loaded, and the bundled workflow (1024 px,
+     matted_rgba, mask_refine) runs through workflow.execute_workflow on it;
+     (b) the bundled workflow in this process on a warmed worker thread
+     under inference mode, as ComfyUI's prompt worker runs nodes: K1 32, K2
+     2, K3 11; the node's alpha against a direct pipeline call (MAE <=
+     1e-2), the SaveImage PNG against the matted tensor (within 1/255), the
+     alpha PNG against (a)'s; (c) a graph shaped like the reference's
+     production workflow (LoadImage, the SegmentAnything stand-in, four
+     SDMatteApply nodes at 1024 px matted_rgba and matted_rgb, 768 and 512
+     px alpha_only, eight MaskPreview+, one SaveImage): one pipeline in the
+     node cache throughout, one checkpoint load in (b) and (c), each node's
+     launches, each alpha against its direct call (MAE <= 1e-2), warm s per
+     graph and its peak beside one matte's; (d) python -m
+     sdmatte_tpu_torch.workflow --random-weights in a subprocess: exit 0,
+     the PNGs, K1 32, K2 2, K3 11, the alpha against (b)'s (the seeded
+     weights are the checkpoint's), its wall beside a bare process
+Phases 3-7 and 9 run under torch.inference_mode(); phase 8 trains, so it does not.
 After phase 7, K1 and SDPA at the text path's shapes by device time
 (torch.profiler), where an event pair would time the host's work.
 With --profile, one more warm matte of each phase-5 path runs under
@@ -1971,6 +1993,453 @@ class Training(EntryPoints):
             f"({self.smi})")
 
 
+# The ComfyUI loader of phase 9 (a), run in its own process: the package's
+# __init__.py under a module name of the host's choosing, entered in
+# sys.modules before it runs (ComfyUI's nodes.load_custom_node), with stub
+# host modules: folder_paths on the models directory, comfy.model_management
+# whose device is the card and whose soft_empty_cache does what ComfyUI's
+# does on an NVIDIA card (the node calls it after each matte, as the
+# reference node empties the cache).  The host makes its CUDA context at
+# start-up, before it loads custom nodes.  Then the bundled workflow through
+# the port's runner under the same name: once cold, twice warm, and twice
+# warm with the host's cache emptying turned off.  Prints one JSON line.
+COMFY_LOAD = r'''
+import importlib, importlib.util, inspect, json, os, sys, time, types
+import torch
+root, models, out_dir, device = sys.argv[1:5]
+name = "comfyui_sdmatte_port"
+
+fp = types.ModuleType("folder_paths")
+fp.models_dir = models
+fp.folder_names_and_paths = {"diffusers": [os.path.join(models, "diffusers")]}
+def add_model_folder_path(kind, path, is_default=False):
+    paths = fp.folder_names_and_paths.setdefault(kind, [])
+    if path not in paths:
+        paths.append(path)
+fp.add_model_folder_path = add_model_folder_path
+fp.get_folder_paths = lambda kind: list(fp.folder_names_and_paths.get(kind, []))
+comfy = types.ModuleType("comfy")
+mm = types.ModuleType("comfy.model_management")
+mm.get_torch_device = lambda: torch.device(device)
+def soft_empty_cache(force=False):
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        torch.cuda.ipc_collect()
+mm.soft_empty_cache = soft_empty_cache
+comfy.model_management = mm
+sys.modules.update({"folder_paths": fp, "comfy": comfy, "comfy.model_management": mm})
+t0 = time.perf_counter()
+torch.zeros(1, device=device)
+t_ctx = time.perf_counter() - t0
+
+t0 = time.perf_counter()
+spec = importlib.util.spec_from_file_location(
+    name, os.path.join(root, "sdmatte_tpu_torch", "__init__.py"))
+module = importlib.util.module_from_spec(spec)
+sys.modules[name] = module
+spec.loader.exec_module(module)
+cls = getattr(module, "NODE_CLASS_MAPPINGS")["SDMatteApply"]
+t_load = time.perf_counter() - t0
+
+def refuse(url, dst, progress=True):
+    raise AssertionError(f"tried to download {url}")
+
+importlib.import_module(name + ".assets.manager")._default_fetch = refuse
+build = importlib.import_module(name + ".ops._build")
+wf = importlib.import_module(name + ".workflow")
+node = sys.modules[name + ".api.node"]
+get_pipeline, t_pipeline = node.get_pipeline, []
+def timed_get_pipeline(*a, **k):
+    t0 = time.perf_counter()
+    pipe = get_pipeline(*a, **k)
+    t_pipeline.append(time.perf_counter() - t0)
+    return pipe
+node.get_pipeline = timed_get_pipeline
+with open(os.path.join(root, "examples", "workflow_sdmatte_tpu.json")) as f:
+    graph = json.load(f)
+
+def run(out):
+    registry = dict(wf.builtin_nodes(os.path.join(root, "examples"), out),
+                    SDMatteApply=cls())
+    timings = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        wf.execute_workflow(graph, registry, verbose=False, timings=timings)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0, timings[3]
+
+first, first_node = run(os.path.join(out_dir, "first"))
+for k in build.Kernel.registry:
+    k.launches = 0
+warm, warm_node = run(os.path.join(out_dir, "warm"))
+launches = {k.name: k.launches for k in build.Kernel.registry}
+warm2, warm2_node = run(os.path.join(out_dir, "warm2"))
+mm.soft_empty_cache = lambda force=False: None
+kept = [run(os.path.join(out_dir, f"kept{i}")) for i in range(2)]
+(pipe,) = node._PIPELINE_CACHE.values()
+rep = pipe.load_report
+print(json.dumps({
+    "class_file": inspect.getfile(cls), "class_module": cls.__module__,
+    "is_port_node": cls is node.SDMatteApply,
+    "foreign": sorted(m for m in sys.modules if m.split(".")[0] in
+                      ("jax", "sdmatte_tpu", "sdmatte_tpu_torch", "run_workflow", "examples")),
+    "build_dir": str(build.BUILD_DIR),
+    "libraries": sorted(str(build.library_path(n)) for n in build._LIBS),
+    "sdmatte_folder": fp.get_folder_paths("SDMatte"),
+    "report": [len(rep.missing), len(rep.unexpected), len(rep.mismatched)],
+    "device": str(pipe.device), "dtype": str(pipe.policy.param_dtype),
+    "context_s": t_ctx, "import_s": t_load, "pipeline_s": t_pipeline[0],
+    "first_s": first, "first_node_s": first_node,
+    "warm_s": [warm, warm2], "warm_node_s": [warm_node, warm2_node],
+    "kept_s": [t for t, _ in kept], "kept_node_s": [n for _, n in kept],
+    "launches": launches,
+    "pngs": sorted(os.listdir(os.path.join(out_dir, "warm")))}))
+'''
+
+
+class HostPath(EntryPoints):
+    """Phase 9: the ComfyUI host path at full width (SDMatteConfig(), bf16),
+    on phase 6's checkpoint under the bundled workflow's checkpoint name:
+    (a) the package loaded as ComfyUI loads a custom node, in a subprocess,
+    running the bundled workflow; (b) the bundled workflow on a warmed worker
+    thread; (c) a graph shaped like the reference's production workflow;
+    (d) ``python -m sdmatte_tpu_torch.workflow --random-weights`` in a
+    subprocess.  Each step asserts its launch counts and raises on failure."""
+
+    CKPT_NAME = "SDMatte_plus.safetensors"    # the bundled workflow's ckpt_name
+    # (inference_size, output_mode, K3 launches) per node of (c); K1 32 and K2
+    # 2 at every size.  Counted on the meta device: the 1024 px encoder takes
+    # 11 convs of the dispatch table, the 768 and 512 px encoders 7 each
+    PRODUCTION = [(1024, "matted_rgba", 11), (1024, "matted_rgb", 11),
+                  (768, "alpha_only", 7), (512, "alpha_only", 7)]
+    # the card; the CPU only when this phase is tried out without one
+    DEVICE, WORKFLOW_FLAGS = "cuda", ()
+
+    def __init__(self, smoke, workdir: str, root: str, bare_s: float):
+        super().__init__(smoke, workdir, root)
+        self.bare_s = bare_s
+        self.examples = os.path.join(root, "examples")
+        self.workflow = os.path.join(self.examples, "workflow_sdmatte_tpu.json")
+        self.out = os.path.join(workdir, "workflow_out")
+        # ComfyUI's SDMatte folder holds phase 6's file under the workflow's name
+        os.symlink(self.ckpt, os.path.join(os.path.dirname(self.ckpt), self.CKPT_NAME))
+
+    def on_worker(self, fn):
+        """fn() on the worker thread under inference mode, synchronized."""
+        def call():
+            with self.torch.inference_mode():
+                out = fn()
+                self.torch.cuda.synchronize()
+                return out
+        return self.worker.submit(call).result()
+
+    def run_graph(self, graph, node, out):
+        """(outputs, total s, each node's own s) of one graph on the worker,
+        with fresh builtin nodes writing into ``out`` (their "wrote" lines
+        are dropped)."""
+        import io
+        from sdmatte_tpu_torch import workflow
+        registry = dict(workflow.builtin_nodes(self.examples, out), SDMatteApply=node)
+        timings = {}
+
+        def go():
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = workflow.execute_workflow(graph, registry, verbose=False,
+                                                timings=timings)
+            self.torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+        res, total = self.on_worker(go)
+        return res, total, timings
+
+    @staticmethod
+    def options(widgets):
+        """The pipeline options a node's widgets ask for."""
+        from sdmatte_tpu_torch.pipeline import PipelineOptions
+        _, size, transparent, mode, refine, tc = widgets[:6]
+        return PipelineOptions(inference_size=size, is_transparent=transparent,
+                               output_mode=mode, mask_refine=refine, trimap_constraint=tc)
+
+    @staticmethod
+    def png(path):
+        import numpy as np
+        from PIL import Image
+        return np.asarray(Image.open(path)).astype(np.int16)
+
+    # -- (a) -------------------------------------------------------------
+    def comfy_load(self):
+        script = os.path.join(self.dir, "comfy_load.py")
+        with open(script, "w") as f:
+            f.write(COMFY_LOAD)
+        out = os.path.join(self.dir, "comfy_out")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, script, self.root, self.dir, out, self.DEVICE],
+                           cwd=self.dir, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            log(r.stdout[-2000:] + r.stderr[-4000:])
+            raise AssertionError(f"(a) the ComfyUI-style load exited {r.returncode}")
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        node_file = os.path.join(self.root, "sdmatte_tpu_torch", "api", "node.py")
+        build_dir = os.path.join(self.root, "sdmatte_tpu_torch", "_build")
+        log(f"  (a) loaded as {got['class_module']!r} from {got['class_file']}; modules of "
+            f"jax, sdmatte_tpu or the package's own name: {got['foreign']}; kernels from "
+            f"{got['build_dir']} ({len(got['libraries'])} libraries); the node's model "
+            f"folder {got['sdmatte_folder']}; load report missing/unexpected/mismatched "
+            f"{got['report']}, {got['device']} {got['dtype']}")
+        if not (got["is_port_node"] and os.path.samefile(got["class_file"], node_file)
+                and got["class_module"] == "comfyui_sdmatte_port.api.node"):
+            raise AssertionError("(a) the registered class is not the port's SDMatteApply")
+        if got["foreign"]:
+            raise AssertionError(f"(a) the load imported {got['foreign']}")
+        if not (os.path.samefile(got["build_dir"], build_dir) and got["libraries"]
+                and all(os.path.dirname(p) == got["build_dir"] for p in got["libraries"])):
+            raise AssertionError("(a) the kernels were not loaded from the package's _build/")
+        if got["report"] != [0, 0, 0]:
+            raise AssertionError(f"(a) the node's load report is not clean: {got['report']}")
+        self.expect("(a) bundled workflow under the foreign name", self.predicted(k3=11),
+                    got["launches"])
+        r4 = lambda ts: [round(t, 4) for t in ts]   # noqa: E731
+        log(f"  (a) subprocess wall {wall:.2f} s (bare process {self.bare_s:.2f} s): the "
+            f"host's CUDA context {got['context_s']:.2f} s; package import "
+            f"{got['import_s']:.2f} s; first workflow {got['first_s']:.2f} s (node "
+            f"{got['first_node_s']:.2f} s, of which the node's pipeline (seeded init, "
+            f"checkpoint load) {got['pipeline_s']:.2f} s); warm, the host emptying the CUDA "
+            f"cache after each matte: {r4(got['warm_s'])} s (node {r4(got['warm_node_s'])} s); "
+            f"warm, the cache kept: {r4(got['kept_s'])} s (node {r4(got['kept_node_s'])} s); "
+            f"PNGs {got['pngs']}")
+        if got["pngs"] != ["preview_01_000.png", "sdmatte_matted_01_000.png"]:
+            raise AssertionError(f"(a) the workflow wrote {got['pngs']}")
+        self.comfy_out = os.path.join(out, "warm")
+        self.numbers.update(comfy_wall_s=wall, comfy_first_s=got["first_s"],
+                            comfy_warm_s=statistics.median(got["warm_s"]),
+                            comfy_kept_s=statistics.median(got["kept_s"]))
+
+    # -- (b) -------------------------------------------------------------
+    def bundled(self):
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch.api import NODE_CLASS_MAPPINGS
+        from sdmatte_tpu_torch.api import node as node_mod
+        with open(self.workflow) as f:
+            graph = json.load(f)
+        node = NODE_CLASS_MAPPINGS["SDMatteApply"]()
+        out = os.path.join(self.out, "bundled")
+        # the worker's first workflow loads the checkpoint through the node
+        _, first, _ = self.run_graph(graph, node, os.path.join(self.out, "bundled_first"))
+        (self.pipe,) = node_mod._PIPELINE_CACHE.values()
+        self.zero_counts()
+        res, _, _ = self.run_graph(graph, node, out)
+        self.expect("(b) bundled workflow", self.predicted(k3=11))
+        times, node_s, own_s, by_type = [], [], [], {}
+        types = {n["id"]: n["type"] for n in graph["nodes"]}
+        for i in range(3):
+            _, total, timings = self.run_graph(graph, node, os.path.join(self.out, f"bundled_{i}"))
+            times.append(total)
+            node_s.append(timings[3])
+            own_s.append(total - sum(timings.values()))
+            for nid, t in timings.items():
+                by_type.setdefault(types[nid], []).append(t)
+        alpha, matted = res[3]
+        img, tri = res[1][0], res[2][0]
+        opts = self.options(graph["nodes"][2]["widgets_values"])
+        direct = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref = self.on_worker(lambda: self.pipe(img, tri, options=opts))
+            direct.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mae = float((alpha - ref[0].cpu()).abs().mean())
+        saved = self.png(os.path.join(out, "sdmatte_matted_01_000.png")) / 255.0
+        png_err = float(np.abs(saved - matted[0].numpy()).max())
+        comfy = self.png(os.path.join(self.comfy_out, "preview_01_000.png"))
+        ours = self.png(os.path.join(out, "preview_01_000.png"))
+        comfy_mae = float(np.abs(comfy - ours).mean()) / 255
+        med, med_direct = statistics.median(times), statistics.median(direct)
+        log(f"  (b) first workflow on the worker {first:.2f} s (the checkpoint load included); "
+            f"warm s {[round(t, 4) for t in times]} median {med:.4f}, of which the node "
+            f"{statistics.median(node_s):.4f} s and the runner itself "
+            f"{statistics.median(own_s) * 1e3:.3f} ms; the direct pipeline call on the same "
+            f"thread {[round(t, 4) for t in direct]} median {med_direct:.4f} s, peak "
+            f"{peak:.2f} GiB")
+        log(f"  (b) median s per node: "
+            f"{ {k: round(statistics.median(v), 4) for k, v in by_type.items()} }")
+        log(f"  (b) node alpha {tuple(alpha.shape)} against the direct call: MAE {mae:.3e} (bar "
+            f"1e-2); the SaveImage PNG against the matted tensor: max {png_err:.3e} (bar 1/255 "
+            f"= {1 / 255:.3e}); the alpha preview PNG against (a)'s: MAE {comfy_mae:.3e}, max "
+            f"{int(np.abs(comfy - ours).max())} steps (bar MAE 1/255)")
+        if not (mae <= 1e-2 and png_err <= 1 / 255 and comfy_mae <= 1 / 255):
+            raise AssertionError("(b) the bundled workflow's outputs differ")
+        self.preview = ours
+        self.numbers.update(workflow_s=med, workflow_node_s=statistics.median(node_s),
+                            runner_ms=statistics.median(own_s) * 1e3, direct_s=med_direct,
+                            one_matte_gib=peak)
+
+    # -- (c) -------------------------------------------------------------
+    def production_graph(self):
+        """LoadImage -> the SegmentAnything stand-in (the trimap) -> four
+        SDMatteApply nodes on one checkpoint; each node's alpha beside the
+        trimap it was given in eight MaskPreview+ nodes, as the reference's
+        previews pair them; the first node's cutout into one SaveImage; a
+        Bookmark."""
+        nodes, links = [], []
+
+        def add(type_, inputs=(), widgets=()):
+            nid = len(nodes) + 1
+            ins = []
+            for name, (src, slot) in inputs:
+                links.append([len(links) + 1, src, slot, nid, len(ins), ""])
+                ins.append({"name": name, "link": len(links)})
+            nodes.append({"id": nid, "type": type_, "inputs": ins,
+                          "widgets_values": list(widgets)})
+            return nid
+
+        photo = add("LoadImage", widgets=("example_input.png", "image"))
+        sam = add("LayerMask: SegmentAnythingUltra V2", [("image", (photo, 0))])
+        applies = [add("SDMatteApply", [("image", (photo, 0)), ("trimap", (sam, 1))],
+                       (self.CKPT_NAME, size, False, mode, True, 0.8, False))
+                   for size, mode, _ in self.PRODUCTION]
+        for a in applies:
+            add("MaskPreview+", [("mask", (a, 0))])
+            add("MaskPreview+", [("mask", (sam, 1))])
+        add("SaveImage", [("images", (applies[0], 1))], ("sdmatte_production",))
+        add("Bookmark (rgthree)")
+        return {"nodes": nodes, "links": links}, photo, sam, applies
+
+    def production(self):
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch.api import node as node_mod
+        from sdmatte_tpu_torch.ops._build import Kernel
+        graph, photo, sam, applies = self.production_graph()
+        calls = []
+        smoke = self
+
+        class CountedApply(node_mod.SDMatteApply):
+            """The port's node, recording each call's launches and the cache."""
+
+            def apply_matte(self, **kw):
+                smoke.zero_counts()
+                out = super().apply_matte(**kw)
+                torch.cuda.synchronize()
+                calls.append(({k.name: k.launches for k in Kernel.registry},
+                              list(node_mod._PIPELINE_CACHE.values())))
+                return out
+
+        node, out = CountedApply(), os.path.join(self.out, "production")
+        self.run_graph(graph, node, out + "_first")      # warms 768 and 512 px
+        calls.clear()
+        res, _, _ = self.run_graph(graph, node, out)
+        for (size, mode, k3), (got, cache) in zip(self.PRODUCTION, calls):
+            self.expect(f"(c) node {size} px {mode}", self.predicted(k3=k3), got)
+            if len(cache) != 1 or cache[0] is not self.pipe:
+                raise AssertionError(f"(c) the node cache held {len(cache)} pipelines, not (b)'s")
+        total = {k: sum(c[0][k] for c in calls) for k in calls[0][0]}
+        log(f"  (c) per graph: launches {total}; checkpoint loads in (b) and (c): "
+            f"{len(self.loads)}; pipelines in the node cache after each node: "
+            f"{[len(c[1]) for c in calls]}")
+        if len(calls) != 4 or len(self.loads) != 1:
+            raise AssertionError(f"(c) {len(calls)} node calls, {len(self.loads)} checkpoint loads")
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        if len(pngs) != 9:
+            raise AssertionError(f"(c) the graph wrote {len(pngs)} PNGs, not 8 previews and a save")
+        torch.cuda.reset_peak_memory_stats()
+        times, by_type = [], {}
+        for i in range(2):
+            _, t, timings = self.run_graph(graph, node, f"{out}_{i}")
+            times.append(t)
+            sums = {}
+            for n in graph["nodes"]:
+                sums[n["type"]] = sums.get(n["type"], 0.0) + timings[n["id"]]
+            for k, v in sums.items():
+                by_type.setdefault(k, []).append(v)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        img, tri = res[photo][0], res[sam][1]
+        maes = []
+        for nid in applies:
+            opts = self.options(graph["nodes"][nid - 1]["widgets_values"])
+            ref = self.on_worker(lambda: self.pipe(img, tri, options=opts))
+            maes.append(float((res[nid][0] - ref[0].cpu()).abs().mean()))
+        same = float((res[applies[0]][0] - res[applies[1]][0]).abs().max())
+        log(f"  (c) each node's alpha against its direct call: MAE "
+            f"{[float(f'{m:.3e}') for m in maes]} (bar 1e-2); the two 1024 px nodes' alphas "
+            f"differ by max {same:.3e}; trimap from the stand-in: "
+            f"{float((tri == 1).float().mean()):.3f} fg, {float((tri == 0).float().mean()):.3f} "
+            f"bg; {len(pngs)} PNGs")
+        log(f"  (c) warm s per graph {[round(t, 4) for t in times]} median "
+            f"{statistics.median(times):.4f} (the bundled workflow {self.numbers['workflow_s']:.4f} "
+            f"s); peak {peak:.2f} GiB against one 1024 px matte's "
+            f"{self.numbers['one_matte_gib']:.2f} GiB; median s per graph by node type "
+            f"{ {k: round(statistics.median(v), 4) for k, v in by_type.items()} }")
+        if not max(maes) <= 1e-2:
+            raise AssertionError(f"(c) a node's alpha differs from its direct call by {max(maes)}")
+        self.numbers.update(graph_s=statistics.median(times), graph_gib=peak)
+
+    # -- (d) -------------------------------------------------------------
+    def entry_point(self):
+        import numpy as np
+        out = os.path.join(self.out, "entry_point")
+        cmd = [sys.executable, "-m", "sdmatte_tpu_torch.workflow", self.workflow,
+               "--random-weights", "--out-dir", out, *self.WORKFLOW_FLAGS]
+        env = dict(os.environ, SDMATTE_TPU_MODELS_DIR=self.dir)
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=self.root, env=env, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in r.stderr.splitlines() if ln.startswith("[workflow]")]
+        for ln in lines + [ln for ln in r.stdout.splitlines() if ln.startswith("[workflow]")]:
+            log(f"  (d) {ln}")
+        if r.returncode != 0:
+            log(r.stdout[-2000:] + r.stderr[-4000:])
+            raise AssertionError(f"(d) python -m sdmatte_tpu_torch.workflow exited {r.returncode}")
+        counts = [ln.split("hand-kernel launches: ", 1)[1] for ln in lines
+                  if "hand-kernel launches" in ln]
+        self.expect("(d) workflow process", self.predicted(k3=11), json.loads(counts[-1]))
+        pngs = sorted(os.listdir(out))
+        if pngs != ["preview_01_000.png", "sdmatte_matted_01_000.png"]:
+            raise AssertionError(f"(d) the workflow wrote {pngs}")
+        # the seeded weights are phase 6's checkpoint's: the same alpha as (b)
+        got = self.png(os.path.join(out, "preview_01_000.png"))
+        mae = float(np.abs(got - self.preview).mean()) / 255
+        log(f"  (d) exit 0 in {wall:.2f} s (wall, process start to exit; a bare process "
+            f"{self.bare_s:.2f} s, phase 6 (d)); PNGs {pngs}; the alpha preview against (b)'s: "
+            f"MAE {mae:.3e}, max {int(np.abs(got - self.preview).max())} steps (bar MAE 1/255)")
+        if not mae <= 1 / 255:
+            raise AssertionError("(d) the entry point's alpha differs from the node's")
+        self.numbers.update(workflow_process_s=wall)
+
+    def run(self):
+        from concurrent.futures import ThreadPoolExecutor
+        from sdmatte_tpu_torch import checkpoint
+        from sdmatte_tpu_torch.api import comfy_shim
+        from sdmatte_tpu_torch.api import node as node_mod
+        comfy_shim.add_model_folder_path("SDMatte", os.path.dirname(self.ckpt))
+        comfy_shim.add_model_folder_path("diffusers", os.path.dirname(self.cfg_dir))
+        node_mod._PIPELINE_CACHE.clear()
+        self.loads = []
+        load = checkpoint.load_sdmatte_checkpoint
+
+        def counted_load(model, path, **kw):
+            self.loads.append(path)
+            return load(model, path, **kw)
+
+        checkpoint.load_sdmatte_checkpoint = counted_load
+        try:
+            self.step("(a) ComfyUI-style load in a subprocess", self.comfy_load)
+            with ThreadPoolExecutor(max_workers=1) as self.worker:
+                self.step("(b) bundled workflow", self.bundled)
+                self.step("(c) production-shaped graph", self.production)
+        finally:
+            checkpoint.load_sdmatte_checkpoint = load
+        node_mod._PIPELINE_CACHE.clear()
+        del self.pipe
+        self.torch.cuda.empty_cache()
+        self.step("(d) python -m sdmatte_tpu_torch.workflow", self.entry_point)
+        log(f"  phase 9 numbers: { {k: round(v, 4) for k, v in self.numbers.items()} }")
+
+
 def main() -> int:
     try:
         import torch
@@ -2043,7 +2512,7 @@ def main() -> int:
 
     smoke = Smoke(torch)
     smoke.profile_on = "--profile" in sys.argv[1:]
-    # Phases 3-7 infer only: inference mode keeps every tensor they make out
+    # Phases 3-7 and 9 infer only: inference mode keeps every tensor they make out
     # of autograd (the pipeline and the parity pack run under no_grad anyway)
     with torch.inference_mode():
         log("== 3. kernels against their plain versions")
@@ -2080,10 +2549,14 @@ def main() -> int:
         import tempfile
         workdir = tempfile.mkdtemp(prefix="sdmatte_smoke_")
         try:
-            EntryPoints(smoke, workdir, root).run()
+            entry = EntryPoints(smoke, workdir, root)
+            entry.run()
             log("== 7. the other meta-architecture paths at full width: point prompt, batch 9, "
                 "vae_chunk, speed mode, parity pack")
             MetaPaths(smoke, workdir, root).run()
+            log("== 9. the ComfyUI host path at full width: the package loaded as a custom "
+                "node, the bundled workflow, a production-shaped graph, the runner's entry point")
+            HostPath(smoke, workdir, root, entry.numbers["bare_process_s"]).run()
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         smoke.text_device_times()

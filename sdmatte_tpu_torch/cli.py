@@ -111,16 +111,17 @@ def _run_directory(pipe, args, opts, coords):
     return 0
 
 
-def _print_launches():
+def print_launches(tag: str = "cli"):
     """The hand kernels' launch counts of this process, one JSON line on
     stderr, so a caller can see which kernels the run went through."""
     import json
     from .ops._build import Kernel
     counts = {k.name: k.launches for k in Kernel.registry}
-    print(f"[cli] hand-kernel launches: {json.dumps(counts)}", file=sys.stderr)
+    print(f"[{tag}] hand-kernel launches: {json.dumps(counts)}", file=sys.stderr)
 
 
-def _random_pipeline(cfg, *, device, policy, args):
+def random_pipeline(cfg, *, device, policy, **pipeline_kw):
+    """A pipeline on the model of ``cfg`` with seeded random weights (seed 0)."""
     import torch
     from .models.init import init_random_
     from .models.sdmatte import SDMatte
@@ -128,9 +129,7 @@ def _random_pipeline(cfg, *, device, policy, args):
     with torch.device("meta"):
         model = SDMatte(cfg)
     init_random_(model, seed=0, device=device)
-    return MattingPipeline(model, policy=policy, device=device,
-                           speed_mode=args.speed_mode,
-                           weight_storage=args.weight_storage)
+    return MattingPipeline(model, policy=policy, device=device, **pipeline_kw)
 
 
 def main(argv=None):
@@ -224,7 +223,9 @@ def main(argv=None):
     policy = FP32 if (args.cpu or args.fp32) else BF16
     if args.random_weights or args.tiny:
         cfg = SDMatteConfig.tiny() if args.tiny else SDMatteConfig()
-        pipe = _random_pipeline(cfg, device=device, policy=policy, args=args)
+        pipe = random_pipeline(cfg, device=device, policy=policy,
+                               speed_mode=args.speed_mode,
+                               weight_storage=args.weight_storage)
     else:
         from .api.node import get_pipeline
         if os.path.isfile(args.ckpt):
@@ -251,14 +252,14 @@ def main(argv=None):
     if dir_mode:
         rc = _run_directory(pipe, args, opts, coords)
         if device.type == "cuda":
-            _print_launches()
+            print_launches()
         return rc
     t0 = time.time()
     alpha, matted = pipe(image, trimap, options=opts, coords=coords)
     sync()
     print(f"[cli] matted in {time.time() - t0:.2f}s", file=sys.stderr)
     if device.type == "cuda":
-        _print_launches()
+        print_launches()
 
     save_png(args.out, alpha[0].cpu().numpy())
     if args.matted_out:

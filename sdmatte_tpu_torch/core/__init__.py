@@ -1,0 +1,1 @@
+from . import imaging, embeddings, dtypes, nn  # noqa: F401

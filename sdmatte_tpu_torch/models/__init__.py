@@ -1,0 +1,1 @@
+from . import vae, unet, clip, tokenizer, sdmatte  # noqa: F401

@@ -1,0 +1,1 @@
+from .attention import attention  # noqa: F401

@@ -111,12 +111,12 @@ def _modules():
 
 def test_import_pulls_in_no_jax():
     """Importing the port and every module of it loads neither jax nor the
-    JAX package, and builds no kernel."""
+    JAX package nor anything under ``examples/``, and builds no kernel."""
     code = ("import sys, importlib\n"
             f"for m in {_modules()!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'sdmatte_tpu' or m.startswith('sdmatte_tpu.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'sdmatte_tpu', 'examples', 'run_workflow'))\n"
             "print(len(bad), bad[:5])\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PACKAGE.parent, timeout=120)
@@ -124,9 +124,11 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("0 "), out.stdout
 
 
-# modules of the user entry points, the loader, the parity pack and the
-# training, video and multi-device stack, which the checks above must reach
+# modules of the user entry points, the loader, the parity pack, the
+# training, video and multi-device stack and the workflow runner, which the
+# checks above must reach
 ENTRY_MODULES = {"sdmatte_tpu_torch.finetune", "sdmatte_tpu_torch.parallel",
+                 "sdmatte_tpu_torch.workflow", "sdmatte_tpu_torch.api",
                  "sdmatte_tpu_torch.parallel.train", "sdmatte_tpu_torch.parallel.data",
                  "sdmatte_tpu_torch.parallel.mesh", "sdmatte_tpu_torch.parallel.checkpointing",
                  "sdmatte_tpu_torch.parallel.video",
@@ -174,4 +176,4 @@ def test_no_file_imports_jax():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "sdmatte_tpu", "safetensors",
-                                   "transformers"), (path, name)
+                                   "transformers", "examples", "run_workflow"), (path, name)
