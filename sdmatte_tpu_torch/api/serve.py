@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import sys
 import threading
@@ -46,7 +47,7 @@ import torch
 from ..configs import AUX_INPUT_COORDS
 from ..pipeline import MattingPipeline, PipelineOptions
 from ..pipeline.postprocess import OUTPUT_MODES as VALID_MODES
-from ..utils.observability import METRICS, get_logger
+from ..utils.observability import METRICS, get_logger, record
 
 _log = get_logger("sdmatte_tpu_torch.serve")
 
@@ -85,16 +86,19 @@ class RequestTimeout(RuntimeError):
 
 
 class _Pending:
-    """One queued request: inputs + a completion event the worker signals."""
+    """One queued request: inputs + a completion event the worker signals;
+    ``rid`` and ``queued_ns`` (when it joined the queue) tie its
+    ``serve.queued`` span to its batch's ``serve.batch`` span."""
 
     __slots__ = ("img", "tri", "key", "opts", "coords", "done", "alpha",
-                 "matted", "err")
+                 "matted", "err", "rid", "queued_ns")
 
     def __init__(self, img, tri, key, opts, coords=None):
         self.img, self.tri, self.key, self.opts = img, tri, key, opts
         self.coords = coords
         self.done = threading.Event()
         self.alpha = self.matted = self.err = None
+        self.rid = self.queued_ns = None
 
 
 class MicroBatcher:
@@ -111,6 +115,12 @@ class MicroBatcher:
     Backpressure: the queue is bounded (``max_queue``; overflow raises
     ServiceOverloaded -> 429) and every request carries a deadline
     (``request_timeout_s`` -> 504).
+
+    While the span recorder (utils/observability) is on, each request's
+    wait in the queue is a ``serve.queued`` span and each batch's work on
+    the worker (stacking, the pipeline call, the copies to the host, the
+    hand-out) a ``serve.batch`` span; both carry the request ids that
+    ``submit`` assigns.
 
     ``warmup``, where given, runs on the worker thread before its first
     batch: torch makes its cuBLAS and cuDNN handles per thread, so a warmup
@@ -132,6 +142,7 @@ class MicroBatcher:
         self._cv = threading.Condition()
         self._stop = False
         self.batch_calls = 0          # observability: pipeline invocations
+        self._rids = itertools.count()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -153,6 +164,8 @@ class MicroBatcher:
                 METRICS.count("rejected_overload")
                 raise ServiceOverloaded(
                     f"queue full ({self.max_queue} pending)")
+            item.rid = next(self._rids)
+            item.queued_ns = time.time_ns()
             self._queue.append(item)
             METRICS.observe("queue_depth", float(len(self._queue)))
             self._cv.notify()
@@ -218,6 +231,9 @@ class MicroBatcher:
                 if self._stop:
                     return
                 continue
+            taken_ns = time.time_ns()
+            for x in batch:
+                record("serve.queued", x.queued_ns, taken_ns, request=x.rid)
             try:
                 imgs = np.stack([x.img for x in batch])
                 tris = np.stack([x.tri for x in batch])
@@ -250,6 +266,7 @@ class MicroBatcher:
                     x.err = RuntimeError(f"worker terminated: {e!r}")
                     x.done.set()
                 raise
+            record("serve.batch", taken_ns, time.time_ns(), requests=[x.rid for x in batch])
 
 
 class BadRequest(ValueError):

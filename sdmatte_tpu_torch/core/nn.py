@@ -18,10 +18,13 @@ takes the int8 conv before the dispatch table is consulted.
 
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.nn.functional as tF
 from torch import nn
 
+from ..utils import observability
 from .dtypes import FP32, Policy
 
 
@@ -29,13 +32,24 @@ def _bias(p: nn.Module, dtype: torch.dtype):
     return None if p.bias is None else p.bias.to(dtype)
 
 
+def _dequantize(p: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    w = p.weight_i8
+    return (w.float() * p.weight_s.reshape(-1, *([1] * (w.ndim - 1)))).to(dtype)
+
+
 def kernel_of(p: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     """The layer's weight in ``dtype``; int8 storage is dequantized here, as
     ``w_i8.float() * w_s`` in fp32 per output channel, so the fp form is a
-    temporary of this use while the resident copy stays int8."""
+    temporary of this use while the resident copy stays int8.  While the
+    span recorder is on, each dequantization is a ``quant.dequant`` span
+    (the host time int8 storage costs a matte)."""
     if "weight_i8" in p._buffers:
-        w = p.weight_i8
-        return (w.float() * p.weight_s.reshape(-1, *([1] * (w.ndim - 1)))).to(dtype)
+        if observability.ON:    # stamped by hand: ~350 a matte, so the lightest span
+            t0 = time.time_ns()
+            w = _dequantize(p, dtype)
+            observability.record("quant.dequant", t0, time.time_ns())
+            return w
+        return _dequantize(p, dtype)
     return p.weight.to(dtype)
 
 

@@ -31,6 +31,7 @@ from ..configs import AUX_INPUT_COORDS, SDMatteConfig
 from ..core.dtypes import FP32, Policy
 from ..core.embeddings import point_coords_padding, sinusoidal_embedding
 from ..core.imaging import resize_bilinear, resize_nearest
+from ..utils import observability
 from .clip import CLIPTextModel
 from .unet import MatteUNet
 from .vae import AutoencoderKL
@@ -169,14 +170,15 @@ class SDMatte(nn.Module):
         cd = policy.compute_dtype
         want_features = cfg.use_dis_loss or return_intermediates
         sample = torch.cat([rgb_latent, aux_latent], dim=1).to(cd)
-        out = self.unet(sample=sample, trans=trans,
-                        encoder_hidden_states=aux_tokens,
-                        encoder_hidden_states_2=text_tokens,
-                        coords_embed=coords_embed,
-                        attention_mask=attention_mask,
-                        encoder_attention_mask=enc_mask,
-                        policy=policy, impl=impl, return_features=want_features,
-                        remat=remat)
+        with observability.span("model.unet"):
+            out = self.unet(sample=sample, trans=trans,
+                            encoder_hidden_states=aux_tokens,
+                            encoder_hidden_states_2=text_tokens,
+                            coords_embed=coords_embed,
+                            attention_mask=attention_mask,
+                            encoder_attention_mask=enc_mask,
+                            policy=policy, impl=impl, return_features=want_features,
+                            remat=remat)
         label_latent, feature_maps = out if want_features else (out, None)
 
         # -- decode + alpha head ------------------------------------------

@@ -22,6 +22,7 @@ from ..core import imaging
 from ..core.dtypes import FP32, Policy
 from ..models.sdmatte import SDMatte
 from ..ops import quant
+from ..utils import observability
 from . import postprocess
 
 SPEED_MODES = ("off", "aux_half", "rgb_half", "decode_half", "fast", "fastest")
@@ -192,8 +193,9 @@ class MattingPipeline:
             text_ids = torch.as_tensor(self.tokenizer(prompts), dtype=torch.int64,
                                        device=self.device)
         img_s, pm_s = self._pre(image, prompt_mask, size=options.inference_size)
-        alpha_s = self._heavy(img_s, pm_s, coords, is_trans, aux_type=options.aux_input,
-                              text_ids=text_ids)
+        with observability.span("pipeline.heavy"):
+            alpha_s = self._heavy(img_s, pm_s, coords, is_trans, aux_type=options.aux_input,
+                                  text_ids=text_ids)
         return self._post(alpha_s, image, prompt_mask,
                           output_mode=options.output_mode,
                           refine=options.mask_refine,

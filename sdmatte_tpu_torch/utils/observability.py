@@ -1,7 +1,12 @@
 """Tracing, profiling and structured logging (sdmatte_tpu/utils/observability.py).
 
 Structured logging, ``torch.profiler`` trace capture for device timelines,
-and a lightweight metrics registry the server reports into.
+a lightweight metrics registry the server reports into, and a span recorder
+(``span``, ``record``, ``start``, ``drain``) that stamps named stretches of
+host time on the clock of ``torch.profiler``'s events, so that an operator
+can lay them over a device trace: which step the card idles in, how long a
+request waits in the server's queue, what the dequantization of int8-stored
+weights costs the host.
 """
 
 from __future__ import annotations
@@ -11,9 +16,11 @@ import dataclasses
 import json
 import logging
 import os
+import threading
 import time
 from collections import defaultdict, deque
-from typing import Deque, Dict, Iterator, Optional
+from itertools import count
+from typing import Deque, Dict, Iterator, List, NamedTuple, Optional
 
 _LOGGERS: Dict[str, logging.Logger] = {}
 
@@ -111,10 +118,136 @@ class Metrics:
 METRICS = Metrics()
 
 
-@contextlib.contextmanager
-def timed(name: str, metrics: Metrics = METRICS) -> Iterator[None]:
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        metrics.observe_ms(name, (time.perf_counter() - t0) * 1e3)
+
+# -- spans -------------------------------------------------------------------
+#
+# The program's span sites, each for one reading:
+#   pipeline.heavy  the model call of MattingPipeline.__call__: the card's idle
+#                   time inside it, per matte
+#   model.unet      self.unet(...) in SDMatte.forward: the same, for the U-Net
+#   quant.dequant   the int8 branch of core/nn.kernel_of: host ms per matte
+#   serve.queued    a request in MicroBatcher's queue, submit to its batch
+#   serve.batch     the batcher's worker from a batch's selection to its last
+#                   answer handed out (stacking, the call, the copies back)
+# Stamps are time.time_ns(), the clock torch.profiler's events carry, so a
+# span can be intersected with a trace's device intervals.  No span enters
+# torch.profiler's own event stream (record_function): a trace with the
+# recorder on holds the same events as one with it off.
+
+SPAN_CAP = 1 << 18     # spans kept: a 40 s window of int8-storage mattes (~350 a matte) x3
+
+
+class Span(NamedTuple):
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int                 # threading.get_ident() of the thread that recorded it
+    parent: Optional[int]       # the id of the span open around it on its thread
+    attrs: dict
+
+
+class Drained(NamedTuple):
+    spans: List[Span]           # oldest first
+    dropped: int                # the oldest spans the bounded buffer let go
+
+
+ON = False                      # read by the span sites before any other work
+_buffer: Deque[tuple] = deque(maxlen=SPAN_CAP)
+_dropped = 0
+_lock = threading.Lock()
+_ids = count(1)
+_local = threading.local()
+
+
+def _put(s: tuple) -> None:
+    """Keep one span's fields; they become a ``Span`` when drained."""
+    global _dropped
+    with _lock:
+        if not ON:
+            return
+        if len(_buffer) == _buffer.maxlen:
+            _dropped += 1
+        _buffer.append(s)
+
+
+def _stack() -> list:
+    st = getattr(_local, "stack", None)
+    if st is None:
+        st = _local.stack = []
+    return st
+
+
+class _Open:
+    """A span being recorded on this thread."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "start_ns")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        st = _stack()
+        self.parent = st[-1] if st else None
+        self.id = next(_ids)
+        st.append(self.id)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _stack().pop()
+        _put((self.id, self.name, self.start_ns, end, threading.get_ident(),
+              self.parent, self.attrs))
+        return False
+
+
+class _Off:
+    """What ``span`` returns while recording is off: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, **attrs):
+    """``with span("model.unet"):`` records the stretch of host time inside
+    it while recording is on; ``attrs`` are kept with it."""
+    if not ON:
+        return _OFF
+    return _Open(name, attrs)
+
+
+def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:
+    """A span its caller stamped (``time.time_ns()``): one that starts on
+    one thread and ends on another, or one on a hot path, where ``span``'s
+    bookkeeping would cost more than the work it times; it has no parent."""
+    if ON:
+        _put((next(_ids), name, start_ns, end_ns, threading.get_ident(), None, attrs))
+
+
+def start() -> None:
+    """Turn recording on, with an empty buffer."""
+    global ON, _dropped
+    with _lock:
+        _buffer.clear()
+        _dropped = 0
+        ON = True
+
+
+def drain() -> Drained:
+    """Turn recording off and hand over what it recorded."""
+    global ON, _dropped
+    with _lock:
+        ON = False
+        out = Drained([Span._make(s) for s in _buffer], _dropped)
+        _buffer.clear()
+        _dropped = 0
+    return out

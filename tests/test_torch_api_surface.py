@@ -30,6 +30,10 @@ EXCLUDED = {
     ("checkpoint", "torch_key_to_path"):
         "maps a torch key to a path in the JAX param tree; the port loads by "
         "state_dict key into the module and has no param tree",
+    ("utils", "timed"):
+        "read the host clock without a synchronize, so it timed the enqueue of device "
+        "work; the span recorder (utils/observability.span) stamps on the profiler's "
+        "clock instead",
 }
 
 
