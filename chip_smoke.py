@@ -721,10 +721,15 @@ class Smoke:
         # would dilute the MAE over the pixels the model decides.
         raw_opts = dataclasses.replace(opts, mask_refine=False)
         shared, n_shared = [], 0
+        # the int8 activations are recorded and handed back by the model's own
+        # Python, which a replayed heavy-step graph does not run: these calls,
+        # and the plain pipeline's, run eagerly
+        pipe._graphs.engaged = lambda: False
         with self.int8_activations(shared, replay=False):  # records only on the int8 path
             alpha_raw, _ = pipe(img, tri, options=raw_opts)
         del pipe
         plain, _ = self.pipeline(impl="plain", **kw)
+        plain._graphs.engaged = lambda: False
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()

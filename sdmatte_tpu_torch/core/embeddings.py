@@ -8,6 +8,15 @@ import math
 import numpy as np
 import torch
 
+from . import tables
+
+
+def frequencies(half: int, downscale_freq_shift: float, max_period: float) -> np.ndarray:
+    """(half,) fp32 exp(-log(max_period) * i / (half - shift))."""
+    exponent = -np.float32(math.log(max_period)) * np.arange(half, dtype=np.float32)
+    exponent = exponent / np.float32(half - downscale_freq_shift)
+    return np.exp(exponent, dtype=np.float32)
+
 
 def sinusoidal_embedding(t: torch.Tensor, dim: int, *, flip_sin_to_cos: bool = True,
                          downscale_freq_shift: float = 0.0, scale: float = 1.0,
@@ -15,9 +24,8 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, *, flip_sin_to_cos: bool = T
     """(N,) -> (N, dim)."""
     t = t.float().reshape(-1)
     half = dim // 2
-    exponent = -np.float32(math.log(max_period)) * np.arange(half, dtype=np.float32)
-    exponent = exponent / np.float32(half - downscale_freq_shift)
-    freqs = torch.from_numpy(np.exp(exponent, dtype=np.float32)).to(t.device)
+    freqs = tables.on_device(frequencies, t.device, half, float(downscale_freq_shift),
+                             float(max_period))
     emb = scale * (t[:, None] * freqs[None, :])
     emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
     if flip_sin_to_cos:

@@ -4,7 +4,9 @@ Separable resampling runs as two small dense matmuls with matrices built once
 per (in, out) size pair on the host, in fp32 with the same index and weight
 math as torch's antialiased bilinear resize (on NHWC images, as at the
 pipeline's public boundary); nearest resize is a gather with torch's
-floor(i * in / out) source index (on NCHW model tensors).
+floor(i * in / out) source index (on NCHW model tensors).  Matrices and
+indices are kept on the device (core/tables.py), so a resize copies nothing
+from the host.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import tables
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,10 +68,10 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int, *,
         return x
     xf = x.float()
     if h != out_h:
-        ah = torch.from_numpy(bilinear_aa_matrix(h, out_h, antialias)).to(x.device)
+        ah = tables.on_device(bilinear_aa_matrix, x.device, h, out_h, antialias)
         xf = torch.einsum("oh,bhwc->bowc", ah, xf)
     if w != out_w:
-        aw = torch.from_numpy(bilinear_aa_matrix(w, out_w, antialias)).to(x.device)
+        aw = tables.on_device(bilinear_aa_matrix, x.device, w, out_w, antialias)
         xf = torch.einsum("ow,bhwc->bhoc", aw, xf)
     return xf.to(x.dtype)
 
@@ -77,8 +81,8 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = x.shape[2:]
     if (h, w) == (out_h, out_w):
         return x
-    ih = torch.from_numpy(nearest_index(h, out_h)).to(x.device)
-    iw = torch.from_numpy(nearest_index(w, out_w)).to(x.device)
+    ih = tables.on_device(nearest_index, x.device, h, out_h)
+    iw = tables.on_device(nearest_index, x.device, w, out_w)
     return x.index_select(2, ih).index_select(3, iw)
 
 

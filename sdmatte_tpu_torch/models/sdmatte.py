@@ -51,7 +51,9 @@ def _coords_embed(cfg: SDMatteConfig, aux_type: str, coords: torch.Tensor) -> di
         return {"point_coords": emb.reshape(b, -1)}
     # bbox / mask / trimap / auto all take the bbox branch
     if not cfg.use_coor_input:
-        coords = torch.tensor([[0.0, 0.0, 1.0, 1.0]], device=coords.device).expand(b, 4)
+        # the full-frame box [0, 0, 1, 1], made on the device (no host copy)
+        coords = torch.zeros((b, 4), device=coords.device)
+        coords[:, 2:] = 1.0
     emb = sinusoidal_embedding(coords.reshape(-1), 320)
     return {"bbox_mask_coords": emb.reshape(b, -1)}
 

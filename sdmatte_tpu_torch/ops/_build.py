@@ -12,6 +12,11 @@ source, all started together.
 Every launch runs inside :func:`forward_only`: no kernel here has a
 backward, and a launch writes a fresh tensor, so without that node a
 gradient through a kernel would be dropped without a word.
+
+While a thread captures a CUDA graph of the pipeline's heavy step
+(pipeline/graphs.py), :data:`CAPTURE` holds that capture's segmenter, and a
+launch on that thread cuts the capture there instead of running: the kernel
+runs between two graphs at each replay, through :meth:`Kernel.launch`.
 """
 
 from __future__ import annotations
@@ -102,6 +107,14 @@ def load(name: str) -> ctypes.CDLL:
         return _LIBS[name]
 
 
+class _Capture(threading.local):
+    """Per thread: the segmenter of the graph capture running on it, else None."""
+    segmenter = None
+
+
+CAPTURE = _Capture()
+
+
 class Kernel:
     """One hand kernel: where it lives, what it replaces, and its launch count.
 
@@ -125,6 +138,12 @@ class Kernel:
         Kernel.registry.append(self)
 
     def launch(self, *args) -> None:
+        """Run the kernel on the stream of the last argument; inside a graph
+        capture on this thread, hand it to the capture's plan instead (it is
+        neither run nor counted until the plan replays it)."""
+        if CAPTURE.segmenter is not None:
+            CAPTURE.segmenter.cut(self, args)
+            return
         if self._fn is None:
             lib = load(self.library)
             fn = getattr(lib, self.symbol)

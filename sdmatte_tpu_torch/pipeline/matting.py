@@ -5,12 +5,15 @@ to the inference size and normalisation to [-1, 1]), ``_heavy`` (the model:
 VAE encode, U-Net, decode) and ``_post`` (resize back, clamp, trimap
 refinement, composite).  PyTorch runs eagerly, so there is no per-shape
 compile cache; ``warmup`` builds the hand kernels and runs each size once.
+On the card ``_heavy`` replays each shape's step from CUDA graphs captured
+at its first call (pipeline/graphs.py).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import time
 from typing import Optional, Sequence
 
@@ -24,6 +27,7 @@ from ..models.sdmatte import SDMatte
 from ..ops import quant
 from ..utils import observability
 from . import postprocess
+from .graphs import HeavyGraphs
 
 SPEED_MODES = ("off", "aux_half", "rgb_half", "decode_half", "fast", "fastest")
 
@@ -107,6 +111,7 @@ class MattingPipeline:
                 quant.compress_tree_int8_(model)
         self.model = quant.stage_(model, device=self.device,
                                   dtype=policy.param_dtype).eval()
+        self._graphs = HeavyGraphs(self.device)
 
     def _pre(self, image, prompt_mask, *, size: int):
         """image (B,H,W,3), prompt_mask (B,H,W) in [0,1] -> NCHW (S,S) pair."""
@@ -117,7 +122,21 @@ class MattingPipeline:
         return img.permute(0, 3, 1, 2), pm.permute(0, 3, 1, 2)
 
     def _heavy(self, img, pm, coords, is_trans, *, aux_type: str, text_ids=None):
-        """Preprocessed inputs -> model alpha (B,S,S) fp32 in [0,1]."""
+        """Preprocessed inputs -> model alpha (B,S,S) fp32 in [0,1]: on the
+        card by the graphs of the step's key, else eagerly."""
+        args = (img, pm, coords, is_trans, text_ids)
+        return self._graphs(self._heavy_key(args, aux_type),
+                            functools.partial(self._model_alpha, aux_type=aux_type), args)
+
+    def _heavy_key(self, args, aux_type: str) -> tuple:
+        """What the heavy step's shapes and branches depend on: the inputs'
+        shapes and dtypes (batch, inference size, point count, text ids or
+        none), the aux type and the pipeline's settings."""
+        return (aux_type, self.policy, self.impl, self.vae_chunk, self.vae_encode_split,
+                self.speed_mode, *(None if a is None else (tuple(a.shape), a.dtype)
+                                   for a in args))
+
+    def _model_alpha(self, img, pm, coords, is_trans, text_ids, *, aux_type: str):
         data = {"image": img, aux_type: pm, AUX_INPUT_COORDS[aux_type]: coords,
                 "is_trans": is_trans}
         if text_ids is not None:
@@ -148,13 +167,16 @@ class MattingPipeline:
                batch_sizes: Sequence[int] = (1,),
                options: Optional[PipelineOptions] = None) -> dict:
         """Run zero-filled inputs through each (size, batch) once, so the
-        first user request does not pay the kernels' build and the
-        allocator's growth.  Returns {(size, batch): seconds}."""
+        first user request does not pay the kernels' build, the allocator's
+        growth and, on the card, the heavy step's capture.  The largest
+        steps go first: the smaller steps' graphs then fit the memory pool
+        that the largest one made (pipeline/graphs.py).  Returns {(size,
+        batch): seconds}."""
         base = options or PipelineOptions()
         timings = {}
-        for size in sizes:
+        for size in sorted(sizes, reverse=True):
             opts = dataclasses.replace(base, inference_size=size)
-            for b in batch_sizes:
+            for b in sorted(batch_sizes, reverse=True):
                 t0 = time.perf_counter()
                 img = torch.zeros((b, size, size, 3), device=self.device)
                 pm = torch.zeros((b, size, size), device=self.device)

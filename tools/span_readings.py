@@ -12,6 +12,14 @@ the five readings of its spans, until matbench reads them itself:
   that every serve.batch holds exactly the ids of the serve.queued spans
   that end at its start.
 
+Beside them: the heavy step's graph counters over the run (captures,
+replays, fallbacks, eager calls) and replays over heavy calls, which is 1
+less the first call of each key where the graphs engage; and the card's
+memory at the stretch's close, while the pipeline lives: allocated,
+reserved, and the part of reserved that graph pools hold.  On the replayed
+calls the model's Python does not run, so model.unet and quant.dequant
+spans come from eager calls only.
+
     python3 tools/span_readings.py --workload <cell> --seed <n> [--seconds 40] [--recorder 0|1]
     python3 tools/span_readings.py --workload <cell> --seed <n> --seconds 8 --rehearse   # CPU, tiny
 
@@ -110,6 +118,31 @@ def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
     return out
 
 
+HEAVY_COUNTERS = ("heavy.graph_captures", "heavy.graph_replays", "heavy.graph_fallbacks",
+                  "heavy.eager")
+
+
+def heavy_graphs(counters) -> dict:
+    """The heavy step's graph counters and replays over heavy calls."""
+    out = {k: counters.get(k, 0.0) for k in HEAVY_COUNTERS}
+    calls = sum(out.values())
+    out["heavy.graph_replay_share"] = out["heavy.graph_replays"] / calls if calls else None
+    return out
+
+
+def memory(device) -> dict:
+    """The card's allocated and reserved bytes, and the reserved bytes of
+    graph pools (segments outside the default pool), in GiB."""
+    import torch
+    if device.type != "cuda":
+        return {}
+    pools = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+    return {"allocated_gib": torch.cuda.memory_allocated(device) / 2**30,
+            "reserved_gib": torch.cuda.memory_reserved(device) / 2**30,
+            "graph_pool_gib": pools / 2**30}
+
+
 def main():
     import argparse
     sys.path.insert(0, str(ROOT))
@@ -152,6 +185,7 @@ def main():
             if kind != "host":
                 dev.append(iv)
         got["drained"] = obs.drain() if a.recorder else obs.Drained([], 0)
+        got["memory"] = memory(device)
         if dev:
             got["bounds"] = (min(s for s, _ in every), max(e for _, e in every))
             got["busy"] = union(dev)
@@ -190,7 +224,8 @@ def main():
            "s_per_matte": r.s_per_matte, "mattes_in_stretch": r.mattes,
            "launches_per_matte": len(r.kernels) / r.mattes if r.mattes else None,
            "idle_pct": 100 * (1 - r.busy_s / r.window_s) if r.window_s else None,
-           "correct": res.correct}
+           "correct": res.correct, **heavy_graphs(obs.METRICS.counters),
+           **got.get("memory", {})}
     if a.recorder:
         spans, out["dropped"] = got["drained"]
         window = (got["w0_ns"], got["w0_ns"] + int(a.seconds * 1e9))
