@@ -9,8 +9,10 @@ against the reference (``compare.gap_ratio``), the worst kept for each photo
 of the pool; for a control seed, the control
 then takes the program's place on the same traffic and is judged against
 the same reference answers.  The control is the program's own
-lower-precision path, the VAE's 3x3 convs in int8 (``vae_int8``), one step
-below the configuration's bf16.
+lower-precision path, the pipeline keywords ``CONTROL`` of the
+configuration's architecture module (``programs/<architecture>.py``): for
+SDMatte the VAE's 3x3 convs in int8 (``vae_int8``), one step below the
+configuration's bf16.
 
 One JSON line per seed, then a summary: the lower reading (the largest the
 program gave), the upper reading (the smallest of the control's per-run

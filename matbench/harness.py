@@ -3,10 +3,11 @@ traffic for the window, judge every answer of the window against the
 reference, and reduce everything to the cell's metrics.
 
 Everything a cell needs is found by name: the cell in ``BENCHMARK.json``,
-its configuration file, its mix under ``matbench/traffic/``, its limits
-under ``matbench/limits/`` and each per-layer metric's reader under
-``matbench/metrics/``.  Adding a cell adds files and entries; no code here
-changes.
+its configuration file, the two modules of the configuration's
+architecture (``architecture.py``), its mix under ``matbench/traffic/``,
+its limits under ``matbench/limits/`` and each per-layer metric's reader
+under ``matbench/metrics/``.  Adding a cell, or an architecture, adds files
+and entries; no code here changes.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import compare, program
+from . import architecture, compare, program, reference
 from . import trace as tracing
 from .traffic import generate
 
@@ -69,11 +70,13 @@ def find_cell(bench: dict, workload: str):
 
 
 def cell_files(workload: str, conf=None, mix=None):
-    """The cell's configuration and mix, unless given."""
+    """The cell's configuration and mix, unless given; a configuration
+    whose architecture has no modules is refused here."""
     wl, cfg = find_cell(load_benchmark(), workload)
     if conf is None:
         with open(ROOT / cfg["file"]) as f:
             conf = json.load(f)
+    architecture.name_of(conf)
     return conf, mix or generate.load_mix(wl["traffic"])
 
 
@@ -167,7 +170,7 @@ def drive(workload: str, seed: int, seconds: float, trace: bool, *, device,
     mark("pipeline built")
     pool = generate.make_pool(mix, seed, device)
     mark("photos made")
-    opts = program.options(mix)
+    opts = program.options(conf, mix)
     log = None
     if trace:
         tracing.prepare()
@@ -208,6 +211,7 @@ def _closed(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
     d.setup_s = clock() - t0
     order = generate.closed_order(mix, seed, int(seconds * 200) + len(pool))
     prof, stretch_t0, stretch_n, before_n = None, None, 0, 0
+    captures0 = program.graph_captures()
     w0 = clock()
     close = w0 + seconds
     records = []
@@ -232,6 +236,7 @@ def _closed(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
         if prof is not None:
             stretch_n += ok
     d.peak_bytes = _peak(device)
+    d.notes.append(f"graph captures in window {program.graph_captures() - captures0}")
     if prof is not None:
         _sync(device)
         log.on = False
@@ -259,7 +264,7 @@ def _open(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
     max_batch = int(mix["server"]["max_batch"])
 
     def warm():                          # on the batcher's worker thread
-        for b in range(1, max_batch + 1):
+        for b in range(max_batch, 0, -1):   # largest first: the smaller graphs fit its pool
             ks = [i % len(images) for i in range(b)]
             alpha, matted = pipe(np.stack([images[k][0] for k in ks]),
                                  np.stack([images[k][1] for k in ks]), options=opts)
@@ -306,7 +311,7 @@ def _open(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
         d.setup_s = clock() - t0
         stretch = min(STRETCH_S, seconds / 4) if trace else 0.0
         prof, stretch_t0 = None, None
-        calls0 = svc.batcher.batch_calls
+        calls0, captures0 = svc.batcher.batch_calls, program.graph_captures()
         w0 = clock()
         close = w0 + seconds
         due_at = []
@@ -324,6 +329,7 @@ def _open(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
         if left > 0:
             time.sleep(left)
         calls_in_window = svc.batcher.batch_calls - calls0
+        captures_in_window = program.graph_captures() - captures0
         stretch_t1 = clock()
         if prof is not None:
             log.on = False
@@ -355,7 +361,8 @@ def _open(pipe, pool, mix, opts, seed, seconds, trace, log, device, t0, clock,
     d.latencies_s = lat
     d.notes.append(f"generator lateness ms: median {1e3 * float(np.median(due_at)):.3f}, "
                    f"max {1e3 * max(due_at):.3f}")
-    d.notes.append(f"pipeline calls in window {calls_in_window}")
+    d.notes.append(f"pipeline calls in window {calls_in_window}, "
+                   f"graph captures in window {captures_in_window}")
     if prof is not None:
         d.readings = tracing.reduce(prof)
         d.readings.mattes = done_in_stretch
@@ -380,31 +387,24 @@ def driver_of(mix: dict):
 @torch.no_grad()
 def reference_answers(conf: dict, seed: int, device, inputs: dict, mix: dict) -> dict:
     """{photo: ((alpha, matted) in fp32, (alpha, matted) in bf16)} of the
-    reference for each photo of the pool, on weights made again from the seed: fp32
-    with TF32 off, and under bf16 autocast (the configuration's precision),
-    whose gap from fp32 is the unit of ``compare.gap_ratio``."""
+    configuration's reference for each photo of the pool, on weights made
+    again from the seed: fp32 with TF32 off, and under bf16 autocast (the
+    configuration's precision), whose gap from fp32 is the unit of
+    ``compare.gap_ratio``."""
     from . import weights
-    from .reference import sdmatte_ref as ref
-    unknown = set(conf["pipeline"]) - {"weight_storage"}
+    ref = architecture.reference_of(conf)
+    unknown = set(conf["pipeline"]) - ref.PIPELINE_KEYS
     if unknown:
         raise SystemExit(f"matbench: the reference does not model the pipeline keys "
                          f"{sorted(unknown)}")
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    ref.exact_fp32()
+    reference.exact_fp32()
     try:
         params = weights.make_params(conf, seed, device, dtype=torch.bfloat16)
-        params = {k: v.float() for k, v in params.items()}
-        if conf["pipeline"]["weight_storage"] == "int8":
-            params = ref.int8_storage(params)
-        o = mix["options"]
+        params = ref.stored({k: v.float() for k, v in params.items()}, conf)
 
         def call(img, tri):
-            a, m = ref.matte(params, conf, img.to(device)[None], tri.to(device)[None],
-                             size=o["inference_size"],
-                             trimap_constraint=o["trimap_constraint"],
-                             refine=o["mask_refine"], is_transparent=o["is_transparent"],
-                             output_mode=o["output_mode"])
-            return a[0].float(), m[0].float()
+            return ref.answer(params, conf, img.to(device), tri.to(device), mix["options"])
 
         out = {}
         for i, (img, tri) in inputs.items():
@@ -427,22 +427,20 @@ def judge(d: Drive, refs: dict) -> dict:
     return worst
 
 
-def model_flops(conf: dict, size: int) -> float:
-    """Operations of one matte's model forward at ``size``, counted from the
-    reference's shapes on the meta device."""
+def model_flops(conf: dict, mix: dict) -> float:
+    """Operations of one matte's model forward, counted from the shapes of
+    the reference's forward on the meta device at the mix's options and
+    averaged over the photos of its pool (each is sent equally often)."""
     from torch.utils.flop_counter import FlopCounterMode
-
-    from .reference import sdmatte_ref as ref
-    meta = torch.device("meta")
-    params = {n: torch.empty(s, device=meta) for n, s, _ in ref.param_table(conf)}
-    img = torch.empty((1, 3, size, size), device=meta)
-    aux = torch.empty((1, 1, size, size), device=meta)
-    coords = torch.empty((1, 4), device=meta)
-    is_trans = torch.empty((1,), device=meta)
-    counter = FlopCounterMode(display=False)
-    with counter:
-        ref.model_alpha(params, conf, img, aux, coords, is_trans)
-    return float(counter.get_total_flops())
+    ref = architecture.reference_of(conf)
+    sizes = [(e.h, e.w) for e in generate.pool_layout(mix)]
+    total = 0.0
+    for h, w in sorted(set(sizes)):
+        counter = FlopCounterMode(display=False)
+        with counter:
+            ref.meta_forward(conf, mix["options"], h, w)
+        total += sizes.count((h, w)) * float(counter.get_total_flops())
+    return total / len(sizes)
 
 
 @dataclass
@@ -487,7 +485,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, device, t0: fl
     else:
         r = d.readings or tracing.Readings()
         if r.s_per_matte:
-            r.flops_per_matte = model_flops(conf, mix["options"]["inference_size"])
+            r.flops_per_matte = model_flops(conf, mix)
         for m in cell_metrics(bench, workload, "per_layer"):
             v = load_reader(m["name"]).read(r)
             if v is not None:

@@ -22,9 +22,9 @@ The call, as the reference ComfyUI node runs it:
   post   bilinear resize back to the photo's size, clamp to [0, 1], trimap
          refinement (fg x1.2, bg 0, unknown below 0.3 -> 0), composite
 
-Run it in fp32 with TF32 off (:func:`exact_fp32`); the benchmark also runs it
-under ``torch.autocast`` in bf16, the configuration's precision, whose gap
-from fp32 is the unit its comparison counts in.  Attention is computed in
+Run it in fp32 with TF32 off (``reference.exact_fp32``); the benchmark also
+runs it under ``torch.autocast`` in bf16, the configuration's precision,
+whose gap from fp32 is the unit its comparison counts in.  Attention is computed in
 query blocks so that the scores of one block stay near 1 GiB.
 """
 
@@ -39,12 +39,7 @@ NEG_BIAS = -10000.0
 FG_BOOST = 1.2
 KILL_BELOW = 0.3
 INT8_MIN_ELEMS = 1 << 16
-
-
-def exact_fp32() -> None:
-    """No TF32 anywhere: float32 matmuls and convs in full precision."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+PIPELINE_KEYS = frozenset({"weight_storage"})
 
 
 # ------------------------------------------------------------ parameters ---
@@ -192,6 +187,12 @@ def param_table(cfg: dict) -> list[tuple[str, tuple, str]]:
     t.norm("unet.conv_norm_out", ch[0])
     t.conv("unet.conv_out", ch[0], u["out_channels"])
     return t.rows
+
+
+def stored(params: dict, conf: dict) -> dict:
+    """The weights as the deployment holds them: ``weight_storage`` "int8"
+    (:func:`int8_storage`) or "fp" (as they are)."""
+    return int8_storage(params) if conf["pipeline"]["weight_storage"] == "int8" else params
 
 
 def int8_storage(params: dict) -> dict:
@@ -456,3 +457,26 @@ def matte(P, cfg, image, trimap, *, size, trimap_constraint=0.8, refine=True,
     else:
         matted = image * alpha[..., None]
     return alpha, matted
+
+
+def answer(P, cfg, image, trimap, options: dict):
+    """The whole call on one photo, image (H,W,3) and trimap (H,W), with the
+    mix's options (the node's inputs) -> (alpha (H,W), matted (H,W,C)) fp32."""
+    a, m = matte(P, cfg, image[None], trimap[None], size=options["inference_size"],
+                 trimap_constraint=options["trimap_constraint"],
+                 refine=options["mask_refine"], is_transparent=options["is_transparent"],
+                 output_mode=options["output_mode"])
+    return a[0].float(), m[0].float()
+
+
+def meta_forward(cfg, options: dict, height: int, width: int):
+    """The model's forward (VAE encode, U-Net, decode) for one photo, on the
+    meta device: at the inference size, whatever the photo's."""
+    meta = torch.device("meta")
+    params = {n: torch.empty(s, device=meta) for n, s, _ in param_table(cfg)}
+    size = options["inference_size"]
+    img = torch.empty((1, 3, size, size), device=meta)
+    aux = torch.empty((1, 1, size, size), device=meta)
+    coords = torch.empty((1, 4), device=meta)
+    is_trans = torch.empty((1,), device=meta)
+    return model_alpha(params, cfg, img, aux, coords, is_trans)

@@ -1,5 +1,6 @@
-"""The control: the program's own lower-precision path (the VAE's 3x3 convs
-in int8, ``vae_int8``) in the program's place must come out not correct.
+"""The control: the program's own lower-precision path, the architecture
+module's ``CONTROL`` keywords (for SDMatte the VAE's 3x3 convs in int8,
+``vae_int8``), in the program's place must come out not correct.
 
 On the CPU at the tiny configuration it reads above the bf16 program on
 every seed; on the card (``-m cuda``) it is run at each cell's own size on
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from conftest import small_mix, tiny_conf
-from matbench import calibrate, compare, harness
+from matbench import architecture, calibrate, compare, harness
 
 CELLS = [w["name"] for w in harness.load_benchmark()["workloads"]]
 
@@ -29,6 +30,14 @@ def test_control_reads_above_the_program_at_tiny_size(workload):
         assert max(r["control"].values()) > 2.0 * max(r["program"].values()), r
     s = calibrate.summary(rows)
     assert s["lower"] > 0 and s["upper"] > s["lower"]
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_control_is_the_architectures_lower_precision_path(workload):
+    """Both configurations are SDMatte's, whose control is ``vae_int8``."""
+    conf, _ = harness.cell_files(workload)
+    assert architecture.name_of(conf) == "sdmatte"
+    assert architecture.program_of(conf).CONTROL == {"vae_int8": True}
 
 
 @pytest.fixture

@@ -35,17 +35,29 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for f in sorted((MATBENCH / "reference").rglob("*.py")):
+    """Every reference module, the toy architecture's among them, keeps to
+    ``__future__``, ``math`` and ``torch``."""
+    files = sorted((MATBENCH / "reference").rglob("*.py"))
+    files += sorted(MATBENCH.glob("tests/*/reference/*.py"))
+    assert {f.name for f in files} >= {"__init__.py", "sdmatte_ref.py", "toy_ref.py"}
+    for f in files:
         names = top_level_imports(f)
         assert "sdmatte_tpu_torch" not in names, f
         assert names <= {"__future__", "math", "torch"}, (f, names)
 
 
 def test_only_program_module_imports_the_program():
+    """``program.py`` and ``programs/*.py`` may import the port; nothing else
+    of the benchmark does."""
+    importers = set()
     for f in sorted(MATBENCH.rglob("*.py")):
-        if f.name == "program.py" or "tests" in f.parts:
+        if "tests" in f.parts:
             continue
-        assert "sdmatte_tpu_torch" not in top_level_imports(f), f
+        if "sdmatte_tpu_torch" in top_level_imports(f):
+            importers.add(f.relative_to(MATBENCH).as_posix())
+    allowed = {"program.py"} | {f"programs/{f.name}" for f in (MATBENCH / "programs").glob("*.py")}
+    assert importers <= allowed, importers - allowed
+    assert {"program.py", "programs/sdmatte.py"} <= importers
 
 
 def test_forbidden_modules_compares_whole_top_level_names():

@@ -9,8 +9,8 @@ import json
 import pytest
 import torch
 
-from conftest import ROOT, tiny_conf
-from matbench import harness, program, weights
+from conftest import ROOT, small_mix, tiny_conf
+from matbench import architecture, harness, program, weights
 from matbench.reference import sdmatte_ref as ref
 
 DEV = torch.device("cpu")
@@ -25,12 +25,13 @@ def _inputs(seed, b=1, h=72, w=100):
 
 @pytest.mark.parametrize("name", ["sdmatte-bf16", "sdmatte-bf16-w8"])
 def test_param_table_is_the_programs_at_full_width(name):
-    from sdmatte_tpu_torch.models.sdmatte import SDMatte
     conf = json.load(open(ROOT / "matbench" / "configs" / f"{name}.json"))
+    arch = architecture.program_of(conf)
     with torch.device("meta"):
-        model = SDMatte(program.port_config(conf))
-    port = {n: tuple(p.shape) for n, p in model.named_parameters()
-            if not n.startswith("text_encoder.")}
+        model = arch.declare(conf)
+    extra = arch.program_only_shapes(model)
+    assert extra and all(n.startswith("text_encoder.") for n in extra)
+    port = {n: tuple(p.shape) for n, p in model.named_parameters() if n not in extra}
     mine = {n: s for n, s, _ in ref.param_table(conf)}
     assert port == mine
     assert sum(torch.Size(s).numel() for s in mine.values()) == 956_684_715
@@ -98,11 +99,14 @@ def test_weights_are_the_seeds_and_served_in_bf16():
     assert all(0.69 <= float(a[k].min()) and float(a[k].max()) <= 1.31 for k in norm)
     # the reference's group comes out the same with or without the text tower
     text = {"text_encoder.x.weight": (4, 8), "text_encoder.x.bias": (4,)}
-    d = weights.make_params(conf, 9, DEV, text_shapes=text)
+    d = weights.make_params(conf, 9, DEV, extra_shapes=text)
     assert all(torch.equal(a[k], d[k]) for k in a) and set(d) - set(a) == set(text)
 
 
 def test_model_flops_are_counted_from_shapes():
     conf = tiny_conf()
-    f64, f128 = harness.model_flops(conf, 64), harness.model_flops(conf, 128)
+    mix = small_mix()
+    f64 = harness.model_flops(conf, mix)
+    mix["options"] = dict(mix["options"], inference_size=128)
+    f128 = harness.model_flops(conf, mix)
     assert f64 > 0 and 4.0 < f128 / f64 < 16.0

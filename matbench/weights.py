@@ -1,11 +1,13 @@
 """Seeded weights, made on the device in a few large calls.
 
-The rows come from the reference's parameter table (the VAE and the U-Net)
-and, for the CLIP text tower that the program keeps resident but the
-default gating never runs, from the names and shapes the program's model
-declares.  Values: conv and linear weights N(0, 1/fan_in), biases and norm
-shifts N(0, 0.05^2), norm scales U(0.7, 1.3) (O(1) activations throughout);
-drawn in fp32 from one generator, then cast to the serving dtype.
+The rows come from the parameter table of the configuration's reference
+(``reference/<architecture>_ref.py``; SDMatte's VAE and U-Net) and, for the
+parameters the program declares that the table lacks (SDMatte's CLIP text
+tower, resident but never run under the default gating), from the names
+and shapes of the program's model.  Values: conv and linear weights
+N(0, 1/fan_in), biases and norm shifts N(0, 0.05^2), norm scales U(0.7, 1.3)
+(O(1) activations throughout); drawn in fp32 from one generator, then cast
+to the serving dtype.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ import math
 
 import torch
 
-from .reference.sdmatte_ref import param_table
+from . import architecture
 from .traffic.generate import derive_seed
 
 
-def text_rows(shapes: dict) -> list[tuple[str, tuple, str]]:
-    """Rows for the text tower from {name: shape}."""
+def extra_rows(shapes: dict) -> list[tuple[str, tuple, str]]:
+    """Rows for the program's own parameters from {name: shape}."""
     rows = []
     for name, shape in shapes.items():
         kind = "b" if name.endswith(".bias") else ("nw" if len(shape) == 1 else "w")
@@ -28,14 +30,17 @@ def text_rows(shapes: dict) -> list[tuple[str, tuple, str]]:
 
 
 def make_params(conf: dict, seed: int, device, dtype=torch.bfloat16,
-                text_shapes=None) -> dict:
-    """{name: tensor} for the VAE and the U-Net (and the text tower, where
-    its {name: shape} is given), each its own tensor in ``dtype``.  The two
-    groups are drawn from generators of their own, so the reference, which
-    asks for the first alone, gets the same values."""
-    out = _draw(param_table(conf), derive_seed(seed, "weights"), device, dtype)
-    if text_shapes:
-        out.update(_draw(text_rows(text_shapes), derive_seed(seed, "text-weights"),
+                extra_shapes=None) -> dict:
+    """{name: tensor} for the reference's table (and the program's own
+    parameters, where their {name: shape} is given), each its own tensor in
+    ``dtype``.  The two groups are drawn from generators of their own, so
+    the reference, which asks for the first alone, gets the same values.
+    The second's seed is labelled "text-weights" for every architecture, so
+    that SDMatte's text tower keeps its values."""
+    table = architecture.reference_of(conf).param_table(conf)
+    out = _draw(table, derive_seed(seed, "weights"), device, dtype)
+    if extra_shapes:
+        out.update(_draw(extra_rows(extra_shapes), derive_seed(seed, "text-weights"),
                          device, dtype))
     return out
 
