@@ -14,12 +14,15 @@ Phases, in order; any failure exits non-zero before the result lines:
   3. hold each kernel against its plain version at every main-path shape
      class, at shapes ragged for its tiles, and in fp32; the channel-split
      conv wrapper against the direct conv; for each int8 conv the kernel of
-     csrc/conv3x3_i8.cu it is routed to is printed
+     csrc/conv3x3_i8.cu it is routed to is printed; K1's relative-position
+     mode at a 12 MP ViTMatte-B matte's shapes (RELPOS_SHAPES)
   4. time each kernel, its plain version and the one PyTorch call that
      computes the same function (a yardstick the port never calls), beside
      the least time the card could take (bytes at 3.35 TB/s, or operations
      at 989 TFLOP/s bf16 or 1,979 TOP/s int8, whichever is larger); for K1
-     also the exp2 (MUFU) bound
+     also the exp2 (MUFU) bound.  K1's relative-position mode beside SDPA
+     with the bias formed in bf16 where it fits (the windows; at the global
+     shapes it would take 110 GB)
   5. three mattes end to end at full width (SDMatteConfig(): U-Net
      320/640/1280/1280, VAE 128/256/512/512) with seeded random weights,
      bf16, 1024 px: the default, vae_int8=True (every 3x3 VAE conv on the
@@ -95,7 +98,13 @@ Phases, in order; any failure exits non-zero before the result lines:
      sdmatte_tpu_torch.workflow --random-weights in a subprocess: exit 0,
      the PNGs, K1 32, K2 2, K3 11, the alpha against (b)'s (the seeded
      weights are the checkpoint's), its wall beside a bare process
-Phases 3-7 and 9 run under torch.inference_mode(); phase 8 trains, so it does not.
+ 10. (run after phase 9, before phase 8) ViTMatte-B (ViTMatteConfig(), 12
+     blocks, nothing cut) on a 4032 x 3024 photo through ViTMattePipeline
+     and its CUDA graphs: 12 K1 launches a matte, all in the
+     relative-position mode, counted from zero after the warm call; warm
+     time, peak memory, the card's reserved memory before and after, and
+     the alpha before mask_refine against the plain versions (MAE <= 1e-2)
+Phases 3-7, 9 and 10 run under torch.inference_mode(); phase 8 trains, so it does not.
 After phase 7, K1 and SDPA at the text path's shapes by device time
 (torch.profiler), where an event pair would time the host's work.
 With --profile, one more warm matte of each phase-5 path runs under
@@ -194,6 +203,17 @@ TEXT_ATTN_SHAPES = [   # (label, (B, H, Lq, Lk, D), biased, launches on (e))
     ("text cross 16^2 x 77", (1, 20, 256, 77, 64), False, 1),
     ("text cross 128^2 x 77", (1, 5, 16384, 77, 64), False, 0),
 ]
+# K1's relative-position mode on a 12 MP ViTMatte-B matte (ViTMatteConfig(),
+# 4032 x 3024 padded to 4032 x 3040: a 190 x 252 token grid, 252 x 190 for the
+# portrait photo): the four global blocks over the whole grid, the eight
+# windowed blocks each over all 252 of its 14 x 14 windows at once (190 -> 196
+# padded), read from models/vitmatte.py
+RELPOS_SHAPES = [   # (label, (B, H, kh, kw), launches on a landscape matte)
+    ("global 190x252", (1, 12, 190, 252), 4),
+    ("global 252x190", (1, 12, 252, 190), 0),   # the portrait photo's
+    ("windows 14x14", (252, 12, 14, 14), 8),
+]
+VITMATTE_HW = (3024, 4032)
 DOWN_PAD = ((0, 1), (0, 1))   # diffusers Downsample2D's padding at stride 2
 # tolerances: the JAX package's own bars (tests/test_flash_attention.py:43,97,
 # tests/test_conv3x3.py:64,117,135), as allclose(atol, rtol), except bf16
@@ -225,11 +245,13 @@ def nvidia_smi() -> str:
 
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "USETMAXREG")
 # kernel function (a substring of its mangled name) -> what its SASS must hold;
-# none of them may spill.  These are the main paths' instantiations: K1, K2
-# (bf16 d = 512), K3, and K4 at stride 1 (Cin a multiple of 16; and Cin 3 and
-# 4 with the taps folded into K, which gathers its rows without TMA).
+# none of them may spill.  These are the main paths' instantiations: K1 (and
+# its relative-position mode, ViTMatte's), K2 (bf16 d = 512), K3, and K4 at
+# stride 1 (Cin a multiple of 16; and Cin 3 and 4 with the taps folded into
+# K, which gathers its rows without TMA).
 SASS_REQUIRED = {
     "flash_attention": {"flash_fwd_sm90": ("HGMMA", "UTMALDG"),
+                        "flash_fwd_relpos_sm90": ("HGMMA", "UTMALDG"),
                         "flash_fwd_d512_sm90": ("HGMMA", "UTMALDG")},
     "conv3x3": {"conv3x3_sm90": ("HGMMA", "UTMALDG")},
     "conv3x3_i8": {"conv3x3_i8_sm90": ("IGMMA", "UTMALDG"),
@@ -344,6 +366,17 @@ class Smoke:
             bias = (self.rand(b, lk) < 0.5).float() * -10000.0
         return q, k, v, bias, d ** -0.5
 
+    def relpos_inputs(self, shape):
+        """q, k, v sliced from one (B, L, 3, H, 64) bf16 tensor, as ViTMatte's
+        are, and fp32 terms Rh, Rw of the scores' own scale."""
+        from sdmatte_tpu_torch.ops.flash_attention import RelPos
+        b, h, kh, kw = shape
+        n, d = kh * kw, 64
+        qkv = self.randn(b, n, 3, h, d, dtype=self.torch.bfloat16)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rel = RelPos(self.randn(b * h, n, kh), self.randn(b * h, n, kw), kw)
+        return q, k, v, rel, d ** -0.5
+
     def check_attention(self):
         from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
         torch = self.torch
@@ -390,6 +423,14 @@ class Smoke:
             ref = attention_plain(q, k, v, scale=scale, bias=bias)
             self.check(name, f"{label} {tuple(shape)}", got, ref, tol)
             del q, k, v, got, ref
+        for label, shape, _ in RELPOS_SHAPES:
+            q, k, v, rel, scale = self.relpos_inputs(shape)
+            got = flash_attention(q, k, v, scale=scale, rel=rel)
+            torch.cuda.synchronize()
+            ref = attention_plain(q, k, v, scale=scale, rel=rel)
+            self.check("flash_attention_k1 relpos", f"{label} {tuple(shape)}", got, ref,
+                       "attn_bf16")
+            del q, k, v, rel, got, ref
         # K2 on q, k and v as (B, L, H, D) memory viewed as (B, H, L, D)
         q, k, v = (self.randn(2, n, 2, 512, dtype=torch.bfloat16).transpose(1, 2)
                    for n in (1000, 777, 777))
@@ -566,6 +607,8 @@ class Smoke:
             rows.append(("conv3x3", label, shape, launches, t))
             del x, xa, r
         rows += self.time_int8_conv()
+        self.relpos_rows = [("flash_attention_k1 relpos", label, shape, launches,
+                             self.time_relpos(shape)) for label, shape, launches in RELPOS_SHAPES]
         for name, label, shape, launches, t in rows + text_rows:
             extra = "".join(f"  {key} {t[key]:.4f}" for key in ("mufu_ms", "cudnn_bf16_ms")
                             if key in t) + (f"  [{t['route']}]" if "route" in t else "")
@@ -573,7 +616,48 @@ class Smoke:
                 f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
                 f"library_ms {t['library_ms']:.4f}  bound_ms {t['bound_ms']:.4f} "
                 f"({t['bound_by']}){extra}")
+        for name, label, shape, launches, t in self.relpos_rows:
+            library = ("null (" + t["library_note"] + ")" if t["library_ms"] is None
+                       else f"{t['library_ms']:.4f}")
+            log(f"  time {name:26s} {label:16s} {str(shape):20s} x{launches}  "
+                f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  library_ms {library}  "
+                f"bound_ms {t['bound_ms']:.4f} ({t['bound_by']})  mufu_ms {t['mufu_ms']:.4f}")
         return rows
+
+    def time_relpos(self, shape):
+        """K1's relative-position mode at one shape.  Its operations are the
+        QK and PV products; its bytes q, k, v, o in bf16 and the two fp32
+        terms read once.  The yardstick is SDPA with the bias formed whole in
+        bf16 ((B, H, Lq, Lk)), where it fits on the card."""
+        import torch.nn.functional as tF
+        from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+        torch = self.torch
+        b, h, kh, kw = shape
+        n, d = kh * kw, 64
+        q, k, v, rel, scale = self.relpos_inputs(shape)
+        t = {"ms": median_ms(torch, lambda: flash_attention(q, k, v, scale=scale, rel=rel)),
+             "plain_ms": median_ms(torch, lambda: attention_plain(q, k, v, scale=scale, rel=rel),
+                                   reps=1, warm=1)}
+        bias_bytes = 2 * b * h * n * n
+        if bias_bytes <= 8 << 30:
+            key = torch.arange(n, device=self.dev)
+            bias = (rel.rh.view(b, h, n, kh)[..., key // kw]
+                    + rel.rw.view(b, h, n, kw)[..., key % kw]).to(torch.bfloat16)
+            t["library_ms"] = median_ms(torch, lambda: tF.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, scale=scale))
+            del bias
+        else:
+            t["library_ms"] = None
+            t["library_note"] = (f"SDPA's bias alone would take {bias_bytes / 1e9:.0f} GB "
+                                 f"in bf16")
+        flops = 4 * b * h * n * n * d
+        nbytes = 2 * b * h * 4 * n * d + 4 * b * h * n * (kh + kw)
+        t["flops"], t["bytes"] = flops, nbytes
+        t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
+        t["mufu_ms"] = b * h * n * n / MUFU_EX2_PER_S * 1e3
+        del q, k, v, rel
+        torch.cuda.empty_cache()
+        return t
 
     def text_device_times(self):
         """K1 and SDPA at the text path's shapes by device time: at these
@@ -784,6 +868,109 @@ class Smoke:
                                  f"versions (before mask_refine) > 1e-2")
         torch.cuda.empty_cache()
         return launches, median, peak, alpha_raw
+
+    def vitmatte_pipeline(self, **kw):
+        """ViTMatte-B (ViTMatteConfig(): 12 blocks of 768, nothing cut) on
+        seeded weights in a bf16 ViTMattePipeline, made anew."""
+        torch = self.torch
+        from sdmatte_tpu_torch.configs import ViTMatteConfig
+        from sdmatte_tpu_torch.core.dtypes import BF16
+        from sdmatte_tpu_torch.models.init import init_random_
+        from sdmatte_tpu_torch.models.vitmatte import ViTMatte
+        from sdmatte_tpu_torch.pipeline.vitmatte import ViTMattePipeline
+        with torch.device("meta"):
+            model = ViTMatte(ViTMatteConfig())
+        init_random_(model, seed=0, device=self.dev)
+        n = sum(p.numel() for p in model.parameters())
+        return ViTMattePipeline(model, policy=BF16, device=self.dev, **kw), n
+
+    def vitmatte_matte(self):
+        """A 12 MP photo (4032 x 3024) through ViTMatte-B end to end: K1's
+        launches of one matte, counted from zero after the warm call, must be
+        12, all in the relative-position mode; warm time, peak memory, and
+        the alpha before mask_refine against the same call on the plain
+        versions (MAE <= 1e-2).  Returns (launches, median s, peak GiB)."""
+        import numpy as np
+        torch = self.torch
+        from sdmatte_tpu_torch.ops._build import Kernel
+        from sdmatte_tpu_torch.ops.flash_attention import K1
+        from sdmatte_tpu_torch.pipeline.vitmatte import ViTMatteOptions
+        from sdmatte_tpu_torch.utils.observability import METRICS
+        label = "vitmatte 12 MP"
+        h, w = VITMATTE_HW
+        rng = np.random.default_rng(1)
+        yy, xx = np.mgrid[0:h, 0:w]
+        r = np.sqrt(((yy - 0.5 * h) / h) ** 2 + ((xx - 0.45 * w) / w) ** 2)
+        img = np.stack([0.2 + 0.6 * (r < 0.3), 0.3 + 0.4 * yy / h, 0.5 + 0.3 * xx / w], -1)
+        img = np.clip(img + rng.normal(0, 0.05, img.shape), 0, 1).astype(np.float32)
+        tri = np.where(r < 0.25, 1.0, np.where(r < 0.35, 0.5, 0.0)).astype(np.float32)
+        opts = ViTMatteOptions()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved() / 2 ** 30
+        t0 = time.perf_counter()
+        pipe, n_params = self.vitmatte_pipeline()
+        torch.cuda.synchronize()
+        log(f"  [{label}] model: {n_params / 1e6:.1f} M params, seeded random weights, bf16, "
+            f"photo {w} x {h}, ready in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        pipe(img, tri, options=opts)          # warm: the graphs' capture
+        torch.cuda.synchronize()
+        log(f"  [{label}] first call (eager, then captured) {time.perf_counter() - t0:.2f} s")
+        for k in Kernel.registry:
+            k.launches = 0
+        relpos0 = METRICS.counters.get("attention.relpos_launches", 0)
+        predicted = {k.name: (12 if k is K1 else 0) for k in Kernel.registry}
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        t0 = time.perf_counter()
+        alpha, _ = pipe(img, tri, options=opts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = {k.name: k.launches for k in Kernel.registry}
+        relpos = METRICS.counters.get("attention.relpos_launches", 0) - relpos0
+        log(f"  [{label}] launches per matte: {launches} (relative-position mode {relpos})  "
+            f"predicted: {predicted} (all 12 K1 in that mode)")
+        if launches != predicted or relpos != 12:
+            raise AssertionError(f"{label}: the launch counts differ from the prediction")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            pipe(img, tri, options=opts)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reserved = torch.cuda.memory_reserved() / 2 ** 30
+        a = alpha.float()
+        if a.shape != (1, h, w) or not bool(torch.isfinite(a).all()) or a.min() < 0 \
+                or a.max() > 1:
+            raise AssertionError(f"{label}: alpha is not a finite (1, {h}, {w}) map in [0, 1]")
+        median = statistics.median(times)
+        log(f"  [{label}] warm seconds per matte (host clock, synchronized): "
+            f"{[round(t, 4) for t in times]}  median {median:.4f}  peak allocated {peak:.2f} GiB "
+            f"(outside the graphs' pool), reserved {reserved:.2f} GiB (the pool included)")
+        raw_opts = dataclasses.replace(opts, mask_refine=False)
+        alpha_raw, _ = pipe(img, tri, options=raw_opts)
+        del pipe
+        plain, _ = self.vitmatte_pipeline(impl="plain")
+        plain._graphs.engaged = lambda: False
+        for k in Kernel.registry:
+            k.launches = 0
+        t0 = time.perf_counter()
+        alpha_plain_raw, _ = plain(img, tri, options=raw_opts)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        del plain
+        if any(k.launches for k in Kernel.registry):
+            raise AssertionError(f"{label}: the plain run launched a hand kernel")
+        mae = float((alpha_raw.float() - alpha_plain_raw.float()).abs().mean())
+        log(f"  [{label}] plain versions end to end: {t_plain:.4f} s (eager); alpha MAE vs "
+            f"kernels before mask_refine {mae:.3e} (bar 1e-2)")
+        if not mae <= 1e-2:
+            raise AssertionError(f"{label}: alpha MAE {mae} between kernels and plain versions "
+                                 f"(before mask_refine) > 1e-2")
+        torch.cuda.empty_cache()
+        log(f"  [{label}] reserved {reserved0:.2f} GiB before the pipelines, "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB after them")
+        return launches, median, peak
 
     @contextlib.contextmanager
     def int8_activations(self, shared, *, replay):
@@ -2517,7 +2704,7 @@ def main() -> int:
 
     smoke = Smoke(torch)
     smoke.profile_on = "--profile" in sys.argv[1:]
-    # Phases 3-7 and 9 infer only: inference mode keeps every tensor they make out
+    # Phases 3-7, 9 and 10 infer only: inference mode keeps every tensor they make out
     # of autograd (the pipeline and the parity pack run under no_grad anyway)
     with torch.inference_mode():
         log("== 3. kernels against their plain versions")
@@ -2565,6 +2752,8 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         smoke.text_device_times()
+        log("== 10. ViTMatte-B end to end at 12 MP (4032 x 3024), bf16, through its graphs")
+        vit = smoke.vitmatte_matte()
 
     log("== 8. training, video and the process group at full width: fine-tune, remat, the "
         "card against the CPU, no backward through a kernel, video, NCCL at world size 1")
@@ -2585,6 +2774,22 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": per_matte["library_ms"],
         })
+    mine = [(n, t) for *_, n, t in smoke.relpos_rows]
+    per_matte = {key: sum(n * t[key] for n, t in mine)
+                 for key in ("ms", "plain_ms", "flops", "bytes")}
+    windows = [(n, t) for n, t in mine if t["library_ms"] is not None]
+    bound_ms, bound_by = bound(per_matte["flops"], per_matte["bytes"])
+    record.append({
+        "name": K1.name, "mode": "relpos", "path": "vitmatte 12 MP (4032 x 3024)",
+        "route": "cuda", "source": K1.source, "replaces": None,
+        "launches": vit[0][K1.name], "max_abs_err": smoke.err["flash_attention_k1 relpos"],
+        "ms": per_matte["ms"], "plain_ms": per_matte["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "library_note": "SDPA with the bias formed: the 8 windowed launches "
+                        f"{sum(n * t['library_ms'] for n, t in windows):.4f} ms (kernel "
+                        f"{sum(n * t['ms'] for n, t in windows):.4f} ms); at the 4 global "
+                        f"launches the bias would take 110 GB",
+    })
     k1 = [(n, t) for name, _, _, n, t in rows if name == K1.name]
     log(f"  per matte: K1 MUFU bound (1 exp2 per score at 16/clk/SM) "
         f"{sum(n * t['mufu_ms'] for n, t in k1):.4f} ms beside its tensor bound "

@@ -1,5 +1,6 @@
 """Checkpoint loader of the port: safetensors / ``.pth`` -> an ``SDMatte``
-module, with the semantics of sdmatte_tpu/checkpoint/loader.py.
+module, with the semantics of sdmatte_tpu/checkpoint/loader.py (and a
+``ViTMatte`` module, whose names are transformers').
 
   * the weights stay in torch layout: the port's modules carry the
     checkpoint's key names and layouts, so each tensor is copied into the
@@ -124,4 +125,13 @@ def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def load_sdmatte_checkpoint(model: nn.Module, ckpt_path: str) -> LoadReport:
     """Load SDMatte(.plus) weights (.safetensors or legacy .pth) into an
     ``SDMatte`` module in place."""
+    return load_into_module(model, read_checkpoint(ckpt_path))
+
+
+def load_vitmatte_checkpoint(model: nn.Module, ckpt_path: str) -> LoadReport:
+    """Load a ``VitMatteForImageMatting`` checkpoint (transformers'
+    ``model.safetensors``, or a ``.pth``) into a ``ViTMatte`` module in
+    place: the port's names are transformers' own, so no key is mapped; the
+    BatchNorm counters (``num_batches_tracked``), which hold no value at
+    inference, are ignored."""
     return load_into_module(model, read_checkpoint(ckpt_path))

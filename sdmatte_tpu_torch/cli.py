@@ -21,6 +21,16 @@ Images and trimaps pair by filename stem (imgs/cat.png <-> tris/cat.png).
 
 ``--random-weights`` builds the model from seeded random weights instead of
 a checkpoint; ``--tiny`` additionally shrinks it to the CI config.
+
+``--model vitmatte`` runs ViTMatte (hustvl/ViTMatte, ``ViTMatteConfig``'s
+defaults are ViTMatte-B's) at the photo's own resolution, padded to 32:
+``--ckpt`` is then a transformers ``VitMatteForImageMatting`` checkpoint
+(``model.safetensors``), ``--size``, ``--prompt-type``, ``--coords``
+and ``--speed-mode`` do not apply, and ``--transparent`` is accepted and
+ignored (ViTMatte has no opacity input):
+
+    python -m sdmatte_tpu_torch.cli --model vitmatte --image in.png --trimap tri.png \
+        --out alpha.png (--ckpt model.safetensors | --random-weights)
 """
 
 from __future__ import annotations
@@ -98,8 +108,8 @@ def _run_directory(pipe, args, opts, coords):
             chunk = items[i:i + args.batch]
             imgs = np.stack([load_unit_image(p, 3) for _, p, _ in chunk])
             tris = np.stack([load_unit_image(p, 1)[..., 0] for _, _, p in chunk])
-            c = np.repeat(coords, len(chunk), axis=0) if coords is not None else None
-            alpha, matted = pipe(imgs, tris, options=opts, coords=c)
+            extra = {} if coords is None else {"coords": np.repeat(coords, len(chunk), axis=0)}
+            alpha, matted = pipe(imgs, tris, options=opts, **extra)
             alpha, matted = alpha.cpu().numpy(), matted.cpu().numpy()
             for j, (stem, _, _) in enumerate(chunk):
                 save_png(os.path.join(args.out, stem + ".png"), alpha[j])
@@ -132,8 +142,35 @@ def random_pipeline(cfg, *, device, policy, **pipeline_kw):
     return MattingPipeline(model, policy=policy, device=device, **pipeline_kw)
 
 
+def vitmatte_pipeline(args, *, device, policy):
+    """``--model vitmatte``: seeded random weights (seed 0), or a
+    VitMatteForImageMatting checkpoint."""
+    import torch
+    from .configs import ViTMatteConfig
+    from .models.vitmatte import ViTMatte
+    from .pipeline.vitmatte import ViTMattePipeline
+    cfg = ViTMatteConfig.tiny() if args.tiny else ViTMatteConfig()
+    if args.random_weights or args.tiny:
+        from .models.init import init_random_
+        with torch.device("meta"):
+            model = ViTMatte(cfg)
+        init_random_(model, seed=0, device=device)
+    else:
+        from .checkpoint import load_vitmatte_checkpoint
+        model = ViTMatte(cfg)
+        report = load_vitmatte_checkpoint(model, args.ckpt)
+        if report.missing or report.unexpected or report.mismatched:
+            raise SystemExit(f"[cli] {args.ckpt} is not a ViTMatte checkpoint of this "
+                             f"config: {report.summary()}")
+    return ViTMattePipeline(model, policy=policy, device=device,
+                            weight_storage=args.weight_storage)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="SDMatte matting CLI (PyTorch/CUDA)")
+    ap.add_argument("--model", default="sdmatte", choices=["sdmatte", "vitmatte"],
+                    help="sdmatte (SDMatte at --size) or vitmatte (ViTMatte at the "
+                         "photo's own resolution)")
     ap.add_argument("--image", required=True,
                     help="input image PNG, or a directory of images")
     ap.add_argument("--trimap", required=True,
@@ -195,6 +232,14 @@ def main(argv=None):
         except ValueError:
             ap.error(f"--coords must be comma-separated numbers, got "
                      f"{args.coords!r}")
+    if args.model == "vitmatte" and (args.coords or args.prompt_type != "trimap"
+                                     or args.speed_mode != "off"):
+        ap.error("--model vitmatte takes a trimap alone: no --coords, --prompt-type "
+                 "or --speed-mode")
+    if args.model == "vitmatte" and not (args.random_weights or args.tiny
+                                         or os.path.isfile(args.ckpt)):
+        ap.error(f"--model vitmatte needs --ckpt <VitMatteForImageMatting checkpoint> or "
+                 f"--random-weights; {args.ckpt!r} is no file")
 
     import torch
     from .configs import SDMatteConfig
@@ -221,7 +266,9 @@ def main(argv=None):
 
     t0 = time.time()
     policy = FP32 if (args.cpu or args.fp32) else BF16
-    if args.random_weights or args.tiny:
+    if args.model == "vitmatte":
+        pipe = vitmatte_pipeline(args, device=device, policy=policy)
+    elif args.random_weights or args.tiny:
         cfg = SDMatteConfig.tiny() if args.tiny else SDMatteConfig()
         pipe = random_pipeline(cfg, device=device, policy=policy,
                                speed_mode=args.speed_mode,
@@ -240,11 +287,16 @@ def main(argv=None):
     sync()
     print(f"[cli] model ready in {time.time() - t0:.1f}s", file=sys.stderr)
 
-    opts = PipelineOptions(inference_size=args.size,
-                           is_transparent=args.transparent,
-                           output_mode=args.mode, mask_refine=args.refine,
-                           trimap_constraint=args.tc,
-                           aux_input=args.prompt_type)
+    if args.model == "vitmatte":
+        from .pipeline.vitmatte import ViTMatteOptions
+        opts = ViTMatteOptions(output_mode=args.mode, mask_refine=args.refine,
+                               trimap_constraint=args.tc, is_transparent=args.transparent)
+    else:
+        opts = PipelineOptions(inference_size=args.size,
+                               is_transparent=args.transparent,
+                               output_mode=args.mode, mask_refine=args.refine,
+                               trimap_constraint=args.tc,
+                               aux_input=args.prompt_type)
     coords = None
     if args.coords:
         coords = np.asarray([[float(v) for v in args.coords.split(",")]],
@@ -255,7 +307,8 @@ def main(argv=None):
             print_launches()
         return rc
     t0 = time.time()
-    alpha, matted = pipe(image, trimap, options=opts, coords=coords)
+    alpha, matted = pipe(image, trimap, options=opts,
+                         **({} if coords is None else {"coords": coords}))
     sync()
     print(f"[cli] matted in {time.time() - t0:.2f}s", file=sys.stderr)
     if device.type == "cuda":

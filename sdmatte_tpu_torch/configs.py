@@ -270,6 +270,95 @@ def save_pretrained_dir(cfg: SDMatteConfig, base_dir: str) -> str:
     return base_dir
 
 
+@dataclasses.dataclass(frozen=True)
+class ViTMatteConfig:
+    """ViTMatte (hustvl/ViTMatte, arXiv:2305.15272): a ViTDet backbone over
+    photo || trimap and a conv detail decoder.  The defaults are
+    ``hustvl/vitmatte-base-composition-1k``'s published config (transformers'
+    ``VitMatteConfig`` around its ``VitDetConfig``): 768 wide, 12 heads, 12
+    blocks, blocks 0, 1, 3, 4, 6, 7, 9 and 10 in 14 x 14 windows, blocks 2, 5,
+    8 and 11 global with a residual bottleneck after them."""
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    mlp_ratio: int = 4
+    patch_size: int = 16
+    num_channels: int = 4
+    image_size: int = 512               # the global blocks' rel-pos tables: 2 * 512/16 - 1 rows
+    pretrain_image_size: int = 224      # the absolute table: (224/16)^2 + 1 (cls) rows
+    window_size: int = 14
+    window_block_indices: Sequence[int] = (0, 1, 3, 4, 6, 7, 9, 10)
+    residual_block_indices: Sequence[int] = (2, 5, 8, 11)
+    layer_norm_eps: float = 1e-6
+    qkv_bias: bool = True
+    convstream_hidden_sizes: Sequence[int] = (48, 96, 192)
+    fusion_hidden_sizes: Sequence[int] = (256, 128, 64, 32)
+    batch_norm_eps: float = 1e-5
+    size_divisor: int = 32              # the image processor's padding
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ViTMatteConfig":
+        """A transformers ``config.json`` of ``VitMatteForImageMatting`` (its
+        ``backbone_config`` group), transformers' defaults for absent keys."""
+        b = d.get("backbone_config", {})
+        f = cls()
+        return cls(
+            hidden_size=b.get("hidden_size", f.hidden_size),
+            num_hidden_layers=b.get("num_hidden_layers", f.num_hidden_layers),
+            num_attention_heads=b.get("num_attention_heads", f.num_attention_heads),
+            mlp_ratio=b.get("mlp_ratio", f.mlp_ratio),
+            patch_size=b.get("patch_size", f.patch_size),
+            num_channels=b.get("num_channels", f.num_channels),
+            image_size=b.get("image_size", f.image_size),
+            pretrain_image_size=b.get("pretrain_image_size", f.pretrain_image_size),
+            window_size=b.get("window_size", f.window_size),
+            window_block_indices=tuple(b.get("window_block_indices", f.window_block_indices)),
+            residual_block_indices=tuple(b.get("residual_block_indices",
+                                               f.residual_block_indices)),
+            layer_norm_eps=b.get("layer_norm_eps", f.layer_norm_eps),
+            qkv_bias=b.get("qkv_bias", f.qkv_bias),
+            convstream_hidden_sizes=tuple(d.get("convstream_hidden_sizes",
+                                                f.convstream_hidden_sizes)),
+            fusion_hidden_sizes=tuple(d.get("fusion_hidden_sizes", f.fusion_hidden_sizes)),
+            batch_norm_eps=d.get("batch_norm_eps", f.batch_norm_eps),
+        )
+
+    def to_dict(self) -> dict:
+        """The transformers ``config.json`` form that :meth:`from_dict` reads."""
+        return {
+            "backbone_config": {
+                "model_type": "vitdet", "hidden_size": self.hidden_size,
+                "num_hidden_layers": self.num_hidden_layers,
+                "num_attention_heads": self.num_attention_heads, "mlp_ratio": self.mlp_ratio,
+                "patch_size": self.patch_size, "num_channels": self.num_channels,
+                "image_size": self.image_size, "pretrain_image_size": self.pretrain_image_size,
+                "window_size": self.window_size,
+                "window_block_indices": list(self.window_block_indices),
+                "residual_block_indices": list(self.residual_block_indices),
+                "layer_norm_eps": self.layer_norm_eps, "qkv_bias": self.qkv_bias,
+                "use_absolute_position_embeddings": True,
+                "use_relative_position_embeddings": True,
+                "out_features": [f"stage{self.num_hidden_layers}"]},
+            "model_type": "vitmatte", "hidden_size": self.hidden_size,
+            "convstream_hidden_sizes": list(self.convstream_hidden_sizes),
+            "fusion_hidden_sizes": list(self.fusion_hidden_sizes),
+            "batch_norm_eps": self.batch_norm_eps,
+        }
+
+    @classmethod
+    def tiny(cls) -> "ViTMatteConfig":
+        """Every kind of block at test size: block 0 in 4 x 4 windows, block 1
+        global with the residual bottleneck; rel-pos tables in both."""
+        return cls(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                   image_size=64, pretrain_image_size=64, window_size=4,
+                   window_block_indices=(0,), residual_block_indices=(1,),
+                   convstream_hidden_sizes=(8, 12, 16), fusion_hidden_sizes=(16, 12, 8, 8))
+
+
 # aux-input type -> coordinate key
 AUX_INPUT_COORDS = {
     "auto_mask": "auto_coords",

@@ -93,6 +93,17 @@ def conv2d(p: nn.Conv2d, x: torch.Tensor, *, stride: int = 1, padding=1,
     return tF.conv2d(x, w, _bias(p, cd), stride=stride)
 
 
+def conv2d_affine(p: nn.Conv2d, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+                  stride: int = 1, padding: int = 1, policy: Policy = FP32) -> torch.Tensor:
+    """conv(x) * scale + shift per output channel (an inference BatchNorm
+    after the conv), folded into the conv's weight and bias in fp32 before
+    their cast to the compute dtype: one conv and no pass over its output."""
+    cd = policy.compute_dtype
+    w = kernel_of(p, torch.float32) * scale.reshape(-1, 1, 1, 1)
+    b = shift if p.bias is None else shift + p.bias.float() * scale
+    return tF.conv2d(policy.cast_compute(x), w.to(cd), b.to(cd), stride=stride, padding=padding)
+
+
 def _conv3x3(p: nn.Conv2d, x, *, policy: Policy, impl: str, affine=None,
              residual=None):
     from ..ops.conv3x3 import conv3x3, conv3x3_plain

@@ -44,6 +44,41 @@
 //   halves, QK, softmax and PV in turn (the two warpgroups still overlap
 //   each other).
 //
+// K1's relative-position mode (flash_fwd_relpos_sm90, bf16, d = 64: ViTMatte's
+// ViTDet blocks) adds a per-(query, key) bias made of two decomposed terms,
+//   out = softmax_k(scale * q.k + Rh[q, k / kw] + Rw[q, k % kw]) @ v,
+// with Rh (B*H, Lq, kh) and Rw (B*H, Lq, kw) fp32 given by the caller (two
+// small GEMMs on the unscaled q) and the keys row-major on a kh x kw grid.
+// The (Lq, Lk) bias is never formed: at a 12 MP photo's 47,880 tokens it
+// would be 110 GB a block in fp32.  What bounds the mode: at the global
+// blocks' shapes operations again (kh * kw keys, 4 * Lk * d flops a row
+// against kh + kw terms), but the softmax side, which already binds the
+// per-key path, gains one fp32 add a score and the lookups of both terms; in
+// the windows (Lq = Lk = 196) the bytes of q, k, v and o.  So the terms come
+// from shared memory, never from device memory inside the tile loop:
+//   - Rw of the CTA's 128 query rows is staged whole, once, by the consumers
+//     (each warpgroup its 64 rows while Q and K load), in bf16: the main
+//     path's terms are products of bf16 GEMMs, so this is exact there, and it
+//     leaves room for three K/V stages beside Rw (a first design held Rw in
+//     fp32 beside two stages, and the K/V loads' latency showed); the row
+//     stride is kw rounded up to 8 mod 64 values, so that a warp's 32-bit
+//     reads of eight rows fall in distinct banks;
+//   - Rh changes only at a key row's end: for each K tile the producer warp
+//     stages the few rows the tile spans (127 / kw + 2 at most; two at the
+//     global shapes) for the 128 query rows beside K, in the K/V ring, by
+//     cp.async copies that arrive on the tile's barrier when they land (a
+//     first design loaded them through registers, one load's latency after
+//     another, and starved the consumers: 13% of the bound);
+//   - the terms stay in natural units: the row max is taken on
+//     u = s * scale + Rh + Rw and p = 2^(u * log2(e) - max * log2(e)), one
+//     FFMA, so a score costs one fp32 add over the per-key path;
+//   - a thread walks its 32 keys of a tile with one division at the tile's
+//     start and a compare-and-subtract per 8 keys (kw >= 8), and its two
+//     columns of a pair share one Rh value (kw even);
+//   - Rw fits for kw <= 392 (grids up to 6,272 px wide): the wrapper hands a
+//     wider grid over with its keys column-major.
+// Keys past Lk score -inf, as in the unbiased path.
+//
 // K2 in bf16 (flash_fwd_d512_sm90, the main path) is built for Hopper as well,
 // around what d = 512 forces.  It is bound by the tensor cores alone (2048
 // flops per score against one exp2), but O for 64 query rows is 64 x 512 fp32,
@@ -86,6 +121,8 @@ namespace {
 
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // ops/flash_attention.py MASK_VALUE
 constexpr float kLog2e = 1.4426950408889634f;
+// relative-position mode: the Rw pairs a consumer thread has in flight at once
+constexpr int kRelBatch = 8;
 
 struct AttnParams {
   const void* q;
@@ -110,6 +147,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0));
+}
+// A 4-byte async copy through L1; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+// An arrive on `bar` once this thread's earlier cp.async copies have landed;
+// it counts as one of the barrier's expected arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -384,6 +432,8 @@ struct Fa3 {
   static constexpr int kOffBias = kOffV + STAGES * kTileBytes;
   static constexpr int kOffBar = kOffBias + STAGES * kBK * 4;
   static constexpr int kBars = 1 + 3 * STAGES;
+  // relative-position mode: the Rh ring (STAGES x 128 rows x nrs) and Rw (128 rows x ldw)
+  static constexpr int kOffRel = (kOffBar + kBars * 8 + 15) & ~15;
   // setmaxnreg: the producer warpgroup gives its registers to the consumers
   // (384 threads x 168 at launch = 128 x kProducerRegs + 256 x kConsumerRegs)
   static constexpr int kProducerRegs = 24;
@@ -402,6 +452,11 @@ struct Fa3Params {
   int H, Lq, Lk;
   float scale_log2;  // scale * log2(e)
   int panels;        // K2: 64-column panels of d (a runtime value on purpose, see its QK loop)
+  // relative-position mode: Rh (B*H, Lq, kh), Rw (B*H, Lq, kw) fp32; nrs, ldw: shared-memory strides
+  const float* rh;
+  const float* rw;
+  int kh, kw, nrs, ldw;
+  float scale;       // the natural-units scale (mode 2)
 };
 
 __device__ __forceinline__ int pick(int which, int row, int h, int b) {
@@ -524,6 +579,77 @@ __device__ __forceinline__ void fa3_softmax(float (&s)[N / 2], const float* bias
   l_hi = l_hi * a_hi + sum_hi;
 }
 
+// The relative-position mode's online softmax in natural units: u = s * scale
+// + Rh[row, r] + Rw[row, c] for key k0 + column, r = the key's grid row less
+// the tile's first, c = its grid column; keys past Lk (valid < N on the last
+// tile) are set to -inf; the running max m is in natural units and p =
+// 2^(u * log2(e) - m * log2(e)).  rh_*: the tile's Rh rows of this thread's two
+// query rows; rw_*: their Rw rows, bf16 pairs (a key and the next, which share
+// a grid row since kw is even).
+template <int N>
+__device__ __forceinline__ void fa3_softmax_rel(float (&s)[N / 2], const float* rh_lo,
+                                                const float* rh_hi, const uint32_t* rw_lo,
+                                                const uint32_t* rw_hi, int k0, int kw, float scale,
+                                                int tig, int valid, float& m_lo, float& m_hi,
+                                                float& l_lo, float& l_hi, float& a_lo,
+                                                float& a_hi) {
+  const int key = k0 + tig * 2;
+  const int kw2 = kw >> 1;
+  int r = key / kw;
+  int c2 = (key - r * kw) >> 1;  // the pair's column, in pairs
+  r -= k0 / kw;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    if (jj > 0) {  // 8 keys on: at most one row end, since kw >= 8
+      c2 += 4;
+      const bool wrap = c2 >= kw2;
+      c2 = wrap ? c2 - kw2 : c2;
+      r += wrap;
+    }
+    const uint32_t pl = rw_lo[c2], ph = rw_hi[c2];
+    const float2 wl = make_float2(__uint_as_float(pl << 16), __uint_as_float(pl & 0xffff0000u));
+    const float2 wh = make_float2(__uint_as_float(ph << 16), __uint_as_float(ph & 0xffff0000u));
+    const float hl = rh_lo[r], hh = rh_hi[r];
+    s[4 * jj + 0] = fmaf(s[4 * jj + 0], scale, hl + wl.x);
+    s[4 * jj + 1] = fmaf(s[4 * jj + 1], scale, hl + wl.y);
+    s[4 * jj + 2] = fmaf(s[4 * jj + 2], scale, hh + wh.x);
+    s[4 * jj + 3] = fmaf(s[4 * jj + 3], scale, hh + wh.y);
+  }
+  if (valid < N) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      if ((i / 4) * 8 + tig * 2 + (i & 1) >= valid) s[i] = -INFINITY;
+  }
+  float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj + 0], s[4 * jj + 1]));
+    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+  }
+  a_lo = sm90::ex2((m_lo - mx_lo) * kLog2e);  // m = -inf before the first tile: 2^-inf = 0
+  a_hi = sm90::ex2((m_hi - mx_hi) * kLog2e);
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+  const float nm_lo = -mx_lo * kLog2e, nm_hi = -mx_hi * kLog2e;
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+    s[4 * jj + 0] = sm90::ex2(fmaf(s[4 * jj + 0], kLog2e, nm_lo));
+    s[4 * jj + 1] = sm90::ex2(fmaf(s[4 * jj + 1], kLog2e, nm_lo));
+    s[4 * jj + 2] = sm90::ex2(fmaf(s[4 * jj + 2], kLog2e, nm_hi));
+    s[4 * jj + 3] = sm90::ex2(fmaf(s[4 * jj + 3], kLog2e, nm_hi));
+    sum_lo += s[4 * jj + 0] + s[4 * jj + 1];
+    sum_hi += s[4 * jj + 2] + s[4 * jj + 3];
+  }
+  l_lo = l_lo * a_lo + sum_lo;
+  l_hi = l_hi * a_hi + sum_hi;
+}
+
 // P (fp32 S fragment) -> bf16 A fragments of the PV product, one per 16 keys.
 template <int N>
 __device__ __forceinline__ void fa3_pack(const float (&s)[N / 2], uint32_t (&pa)[N / 16][4]) {
@@ -536,13 +662,18 @@ __device__ __forceinline__ void fa3_pack(const float (&s)[N / 2], uint32_t (&pa)
   }
 }
 
-template <int D, int STAGES, bool kBias>
-__global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__ Fa3Params p) {
+// kMode: 0 no bias, 1 a per-key bias, 2 the relative-position terms (D = 64).
+template <int D, int STAGES, int kMode>
+__device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
   using S = Fa3<D, STAGES>;
+  constexpr bool kBias = kMode == 1;
+  static_assert(kMode != 2 || D == 64, "the relative-position mode is built for d = 64");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   float* bias_s = reinterpret_cast<float*>(smem + S::kOffBias);
+  float* rel_h_s = reinterpret_cast<float*>(smem + S::kOffRel);  // mode 2 only
+  __nv_bfloat16* rel_w_s = reinterpret_cast<__nv_bfloat16*>(rel_h_s + STAGES * S::kBQ * p.nrs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kOffBar);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;  // K tile and its bias
@@ -557,7 +688,7 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(k_full + s, 32);
+      sm90::mbar_init(k_full + s, kMode == 2 ? 33 : 32);
       sm90::mbar_init(v_full + s, 1);
       sm90::mbar_init(kv_empty + s, 256);
     }
@@ -596,8 +727,23 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
           sm90::mbar_arrive_expect_tx(v_full + st, S::kTileBytes);
           for (int pn = 0; pn < S::kPanels; ++pn)
             tma_rows(vt + pn * S::kPanelBytes, &p.tv, p.ov, v_full + st, pn * 64, j * S::kBK, h, b);
-        } else {
+        } else if constexpr (kMode != 2) {
           sm90::mbar_arrive(k_full + st);
+        }
+        if constexpr (kMode == 2) {
+          // the Rh rows this tile's keys span, for each of the 128 query rows,
+          // copied without waiting; each lane's copies arrive when they land
+          float* rs = rel_h_s + st * S::kBQ * p.nrs;
+          const int r0 = (j * S::kBK) / p.kw;
+          for (int i = lane; i < S::kBQ; i += 32) {
+            const int q = q0 + i;
+            const float* src = p.rh + (size_t(blockIdx.y) * p.Lq + q) * p.kh + r0;
+            for (int rr = 0; rr < p.nrs; ++rr) {
+              const bool ok = q < p.Lq && r0 + rr < p.kh;
+              cp_async4(rs + i * p.nrs + rr, ok ? src + rr : p.rh, ok);
+            }
+          }
+          cp_async_arrive(k_full + st);
         }
       }
     }
@@ -620,6 +766,43 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
 
+    // mode 2: this warpgroup's 64 Rw rows as bf16 pairs, while Q and K load
+    const int ldw2 = p.ldw >> 1;
+    const uint32_t* rw_lo = reinterpret_cast<const uint32_t*>(rel_w_s) +
+                            (wg * 64 + warp * 16 + g) * ldw2;
+    const uint32_t* rw_hi = rw_lo + 8 * ldw2;
+    const int rh_lo = (wg * 64 + warp * 16 + g) * p.nrs, rh_hi = rh_lo + 8 * p.nrs;
+    if constexpr (kMode == 2) {
+      // the 64 rows are contiguous in Rw: pair e = i * kw2 + c2 is row i, column
+      // c2; a thread's pairs are 128 apart, (di, dc) on in (row, column)
+      const int kw2 = p.kw >> 1, n = 64 * kw2, rows = p.Lq - q0 - wg * 64;
+      const int di = 128 / kw2, dc = 128 - di * kw2;
+      const float2* src = reinterpret_cast<const float2*>(p.rw) +
+                          (size_t(blockIdx.y) * p.Lq + q0 + wg * 64) * kw2;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(rel_w_s) + wg * 64 * ldw2;
+      int i0 = tw / kw2, c0 = tw - (tw / kw2) * kw2;
+      for (int e0 = tw; e0 < n; e0 += 128 * kRelBatch) {
+        float2 w[kRelBatch];  // a batch of loads in flight, then its stores
+        int i = i0, c2 = c0;
+#pragma unroll
+        for (int t = 0; t < kRelBatch; ++t) {
+          const int e = e0 + 128 * t;
+          w[t] = e < n && i < rows ? __ldg(src + e) : make_float2(0.f, 0.f);
+          i += di, c2 += dc;
+          if (c2 >= kw2) c2 -= kw2, ++i;
+        }
+        i = i0, c2 = c0;
+#pragma unroll
+        for (int t = 0; t < kRelBatch; ++t) {
+          if (e0 + 128 * t < n) dst[i * ldw2 + c2] = sm90::pack_bf16(w[t].x, w[t].y);
+          i += di, c2 += dc;
+          if (c2 >= kw2) c2 -= kw2, ++i;
+        }
+        i0 = i, c0 = c2;
+      }
+      sm90::named_bar_sync(3 + wg, 128);
+    }
+
     if (wg == 1) sm90::named_bar_arrive(1, 256);
     sm90::mbar_wait(q_full, 0);
 
@@ -632,8 +815,12 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
       sm90::named_bar_arrive(bar_other, 256);
       sm90::wgmma_wait<0>();
       sm90::reg_fence(s);
-      fa3_softmax<kBias, 128>(s, bias_s, p.scale_log2, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo,
-                              a_hi);
+      if constexpr (kMode == 2)
+        fa3_softmax_rel<128>(s, rel_h_s + rh_lo, rel_h_s + rh_hi, rw_lo, rw_hi, 0, p.kw,
+                             p.scale, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+      else
+        fa3_softmax<kBias, 128>(s, bias_s, p.scale_log2, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo,
+                                a_hi);
       fa3_pack<128>(s, pa);
 
       for (int j = 1; j < nk; ++j) {
@@ -646,8 +833,15 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
         sm90::named_bar_arrive(bar_other, 256);
         sm90::wgmma_wait<1>();  // S_j is ready; the PV product still runs
         sm90::reg_fence(s);
-        fa3_softmax<kBias, 128>(s, bias_s + st * S::kBK, p.scale_log2, tig, p.Lk - j * S::kBK,
-                                m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+        if constexpr (kMode == 2) {
+          const float* rs = rel_h_s + st * S::kBQ * p.nrs;
+          fa3_softmax_rel<128>(s, rs + rh_lo, rs + rh_hi, rw_lo, rw_hi, j * S::kBK, p.kw,
+                               p.scale, tig, p.Lk - j * S::kBK, m_lo, m_hi, l_lo, l_hi,
+                               a_lo, a_hi);
+        } else {
+          fa3_softmax<kBias, 128>(s, bias_s + st * S::kBK, p.scale_log2, tig, p.Lk - j * S::kBK,
+                                  m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
+        }
         sm90::wgmma_wait<0>();
         sm90::reg_fence(o);
         sm90::mbar_arrive(kv_empty + pst);
@@ -724,6 +918,17 @@ __global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__
             sm90::pack_bf16(o[4 * jj + 2] * inv_hi, o[4 * jj + 3] * inv_hi);
     }
   }
+}
+
+template <int D, int STAGES, bool kBias>
+__global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__ Fa3Params p) {
+  fa3_fwd<D, STAGES, kBias ? 1 : 0>(p);
+}
+
+template <int D, int STAGES>
+__global__ void __launch_bounds__(384, 1)
+    flash_fwd_relpos_sm90(const __grid_constant__ Fa3Params p) {
+  fa3_fwd<D, STAGES, 2>(p);
 }
 
 // ---- K2 on Hopper: d = 512 in bf16, d split over two warpgroups ----------------
@@ -1040,11 +1245,60 @@ cudaError_t launch_sm90(const AttnParams& a, const long long* qs, const long lon
   p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
   p.scale_log2 = a.scale * kLog2e;
   p.panels = 0;
+  p.rh = p.rw = nullptr;
+  p.kh = p.kw = p.nrs = p.ldw = 0;
+  p.scale = a.scale;
   auto kern = flash_fwd_sm90<D, STAGES, kBias>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + S::kBQ - 1) / S::kBQ, batch * a.H);
   kern<<<grid, S::kThreads, S::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The relative-position mode's shared memory: Q, three K/V stages, the Rh ring
+// (fp32) and Rw (bf16).
+constexpr int kRelStages = 3;
+constexpr size_t kSmemOptin = 232448;  // the H100's opt-in limit per block
+
+inline int rel_nrs(int kw) { return (127 / kw + 2) | 1; }  // odd: no bank conflicts
+inline int rel_ldw(int kw) { return kw + ((8 - kw % 64) + 64) % 64; }
+inline size_t rel_smem(int kw) {
+  using S = Fa3<64, kRelStages>;
+  return size_t(S::kOffRel) + size_t(kRelStages) * S::kBQ * rel_nrs(kw) * 4 +
+         size_t(S::kBQ) * rel_ldw(kw) * 2 + 1024;
+}
+// Whether the mode takes a key grid of kw columns in its key order: kw even and
+// at least 8 (a pair of keys shares a grid row; 8 keys on cross at most one row
+// end), and Rw's rows within shared memory (kw <= 392).
+inline bool rel_fits(int kw) { return kw >= 8 && kw % 2 == 0 && rel_smem(kw) <= kSmemOptin; }
+
+cudaError_t launch_relpos_sm90(const AttnParams& a, const float* rh, const float* rw, int kh,
+                               int kw, const long long* qs, const long long* ks,
+                               const long long* vs, int batch, cudaStream_t stream) {
+  using S = Fa3<64, kRelStages>;
+  if (!rel_fits(kw) || kh < 1 || size_t(kh) * kw != size_t(a.Lk)) return cudaErrorInvalidValue;
+  Fa3Params p;
+  cudaError_t err = attn_map(&p.tq, p.oq, a.q, qs, batch, a.H, a.Lq, 64);
+  if (err == cudaSuccess) err = attn_map(&p.tk, p.ok, a.k, ks, batch, a.H, a.Lk, 64);
+  if (err == cudaSuccess) err = attn_map(&p.tv, p.ov, a.v, vs, batch, a.H, a.Lk, 64);
+  if (err != cudaSuccess) return err;
+  p.bias = nullptr;
+  p.bias_sb = 0;
+  p.o = a.o;
+  p.o_sb = a.o_sb, p.o_sh = a.o_sh, p.o_sl = a.o_sl;
+  p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
+  p.scale_log2 = a.scale * kLog2e;
+  p.panels = 0;
+  p.rh = rh, p.rw = rw;
+  p.kh = kh, p.kw = kw, p.nrs = rel_nrs(kw), p.ldw = rel_ldw(kw);
+  p.scale = a.scale;
+  auto kern = flash_fwd_relpos_sm90<64, kRelStages>;
+  const int smem = int(rel_smem(kw));
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + S::kBQ - 1) / S::kBQ, batch * a.H);
+  kern<<<grid, S::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1108,15 +1362,23 @@ AttnParams make_params(const void* q, const void* k, const void* v, const float*
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, head,
-// row) for each of q, k, v, o (arrays of three).  Returns a cudaError_t.
+// row) for each of q, k, v, o (arrays of three).  rh, rw, kh, kw (K1 only,
+// appended before the stream): the relative-position terms, contiguous
+// (B*H, Lq, kh) and (B*H, Lq, kw) fp32, or null.  Returns a cudaError_t.
 extern "C" int sdm_flash_attention_k1(int dtype, int d, const void* q, const void* k,
                                       const void* v, const float* bias, void* o,
                                       const long long* qs, const long long* ks,
                                       const long long* vs, const long long* os,
                                       long long bias_sb, int B, int H, int Lq, int Lk,
-                                      float scale, void* stream) {
+                                      float scale, const float* rh, const float* rw, int kh,
+                                      int kw, void* stream) {
   const AttnParams p = make_params(q, k, v, bias, o, qs, ks, vs, os, bias_sb, H, Lq, Lk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rh != nullptr || rw != nullptr) {
+    if (rh == nullptr || rw == nullptr || bias != nullptr || dtype != 1 || d != 64)
+      return int(cudaErrorInvalidValue);
+    return launch_relpos_sm90(p, rh, rw, kh, kw, qs, ks, vs, B, s);
+  }
   // Without a bias (and with a positive scale) K1 takes the max on the raw
   // scores and saves one fp32 operation per score.
   const bool biased = bias != nullptr || !(scale > 0.f);
@@ -1130,6 +1392,10 @@ extern "C" int sdm_flash_attention_k1(int dtype, int d, const void* q, const voi
   if (dtype == 0 && d == 128) return launch<float, 128, 64, 64, 1, 2>(p, B, s);
   return int(cudaErrorInvalidValue);
 }
+
+// 1 if K1's relative-position mode takes a key grid of kw columns row-major
+// (ops/flash_attention.py puts any other grid in column-major), else 0.
+extern "C" int sdm_relpos_fits(int kw) { return rel_fits(kw) ? 1 : 0; }
 
 extern "C" int sdm_flash_attention_k2(int dtype, int d, const void* q, const void* k,
                                       const void* v, const float* bias, void* o,

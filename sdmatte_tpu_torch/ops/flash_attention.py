@@ -1,9 +1,12 @@
-"""Flash attention with an additive per-key bias: the hand kernels and their
-plain version.
+"""Flash attention with an additive per-key bias, or with decomposed
+relative-position terms: the hand kernels and their plain version.
 
   K1  csrc/flash_attention.cu, d <= 128 (the U-Net's d=64 self- and
       cross-attention); replaces sdmatte_tpu/ops/flash_attention.py
-      ::_kernel_fused_l and ::_kernel_d64_v2.
+      ::_kernel_fused_l and ::_kernel_d64_v2.  Its relative-position mode
+      (``rel``, bf16 at d = 64: ViTMatte's blocks) replaces no TPU kernel:
+      the JAX package has no such model, and at a 12 MP photo the bias it
+      adds per (query, key) would take 110 GB a block if it were formed.
   K2  d = 512 (the VAE mid-block's single head); replaces ::_kernel.  In
       bf16 a wgmma/TMA kernel of its own (d split over two warpgroups), in
       fp32 the first design's template.
@@ -16,10 +19,13 @@ CPU tensor and launches a kernel for a CUDA tensor, or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from ._build import Kernel, forward_only, ptr, stream_handle
+from ..utils import observability
+from ._build import CAPTURE, Kernel, forward_only, load, ptr, stream_handle
 
 _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -27,28 +33,79 @@ _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+# K1's relative-position arguments (rh, rw, kh, kw), appended after its
+# others and before the stream, which stays last (pipeline/graphs.py): the
+# benchmark's readers take the others by position
+_REL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+RH_ARG = len(_ARGS) - 1          # the position of rh in a K1 launch
 
-K1 = Kernel("flash_attention_k1", "flash_attention", "sdm_flash_attention_k1",
-            _ARGS, replaces="sdmatte_tpu/ops/flash_attention.py:78 "
-                            "(_kernel_fused_l), :119 (_kernel_d64_v2)")
+
+class _K1(Kernel):
+    """K1, which also counts its relative-position launches
+    (``attention.relpos_launches``), replays of a captured step included."""
+
+    def launch(self, *args) -> None:
+        super().launch(*args)
+        if CAPTURE.segmenter is None and args[RH_ARG].value is not None:
+            observability.METRICS.count("attention.relpos_launches")
+
+
+K1 = _K1("flash_attention_k1", "flash_attention", "sdm_flash_attention_k1",
+         _ARGS[:-1] + _REL_ARGS + _ARGS[-1:],
+         replaces="sdmatte_tpu/ops/flash_attention.py:78 "
+                  "(_kernel_fused_l), :119 (_kernel_d64_v2)")
 K2 = Kernel("flash_attention_k2", "flash_attention", "sdm_flash_attention_k2",
             _ARGS, replaces="sdmatte_tpu/ops/flash_attention.py:41 (_kernel)")
 
 K1_HEAD_DIMS = (64, 128)
 K2_HEAD_DIMS = (512,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the plain version's score block: at most this many fp32 scores at once
+PLAIN_BLOCK_ELEMS = 1 << 28
 
 
-def attention_plain(q, k, v, *, scale: float, bias=None):
+class RelPos(NamedTuple):
+    """Decomposed relative-position terms over a key grid of ``kw`` columns
+    (keys row-major): ``rh`` (B*H, Lq, kh) and ``rw`` (B*H, Lq, kw), fp32 and
+    contiguous; key k adds ``rh[q, k // kw] + rw[q, k % kw]`` to q's score."""
+    rh: torch.Tensor
+    rw: torch.Tensor
+    kw: int
+
+
+def attention_plain(q, k, v, *, scale: float, bias=None, rel: RelPos | None = None):
     """The plain version (sdmatte_tpu/ops/attention.py::attention_xla): fp32
     scores and softmax, P cast to V's dtype before the PV product, which
-    accumulates in fp32."""
+    accumulates in fp32.  With ``rel`` the scores of at most
+    :data:`PLAIN_BLOCK_ELEMS` are held at once (blocks of query rows)."""
+    if rel is not None:
+        return _relpos_plain(q, k, v, scale, rel)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()[:, None, None, :]
     p = torch.softmax(s, dim=-1)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(v.dtype)
+
+
+def _relpos_plain(q, k, v, scale, rel):
+    b, h, lq, _ = q.shape
+    lk = k.shape[2]
+    kw = rel.kw
+    kh = lk // kw
+    rh = rel.rh.view(b, h, lq, kh)
+    rw = rel.rw.view(b, h, lq, kw)
+    kt = k.float().transpose(-1, -2)
+    vf = v.float()
+    rows = max(1, min(lq, PLAIN_BLOCK_ELEMS // (b * h * lk)))
+    out = []
+    for r0 in range(0, lq, rows):
+        r1 = min(lq, r0 + rows)
+        s = torch.matmul(q[:, :, r0:r1].float(), kt) * scale
+        s = s.view(b, h, r1 - r0, kh, kw) + rh[:, :, r0:r1, :, None] + rw[:, :, r0:r1, None, :]
+        p = torch.softmax(s.view(b, h, r1 - r0, lk), dim=-1)
+        out.append(torch.matmul(p.to(v.dtype).float(), vf))
+    return torch.cat(out, dim=2).to(v.dtype)
 
 
 def _check(name, t, dtype, device):
@@ -62,15 +119,15 @@ def _check(name, t, dtype, device):
         raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
 
 
-def flash_attention(q, k, v, *, scale: float, bias=None):
-    """q (B,H,Lq,D), k and v (B,H,Lk,D), bias (B,Lk) fp32 or None ->
-    (B,H,Lq,D) in q's dtype.
+def flash_attention(q, k, v, *, scale: float, bias=None, rel: RelPos | None = None):
+    """q (B,H,Lq,D), k and v (B,H,Lk,D), bias (B,Lk) fp32 or None, rel the
+    relative-position terms or None -> (B,H,Lq,D) in q's dtype.
 
     Any (batch, head, row) strides are taken as they are; the output of a
     kernel is a (B,H,Lq,D) view of a (B,Lq,H,D) tensor, so the caller's
     merge of the heads is free."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale=scale, bias=bias)
+        return attention_plain(q, k, v, scale=scale, bias=bias, rel=rel)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, h, lq, d = q.shape
@@ -87,6 +144,8 @@ def flash_attention(q, k, v, *, scale: float, bias=None):
                 or bias.device != q.device or bias.stride(1) != 1:
             raise ValueError("flash_attention: bias must be a (B, Lk) fp32 "
                              "tensor with a contiguous last dim on q's device")
+    if rel is not None:
+        return _relpos(q, k, v, scale, bias, rel)
     if d in K1_HEAD_DIMS:
         kernel = K1
     elif d in K2_HEAD_DIMS:
@@ -97,7 +156,47 @@ def flash_attention(q, k, v, *, scale: float, bias=None):
                         q, k, v, bias)
 
 
-def _launch(kernel, q, k, v, bias, scale):
+@functools.cache
+def relpos_fits(kw: int) -> bool:
+    """Whether K1 takes a key grid of ``kw`` columns in this key order, as the
+    built library says (csrc/flash_attention.cu ``rel_fits``: kw even and at
+    least 8, and Rw's rows within shared memory, kw <= 392).  On the card
+    only: it builds or loads K1's library."""
+    return bool(load(K1.library).sdm_relpos_fits(int(kw)))
+
+
+def _relpos(q, k, v, scale, bias, rel):
+    """K1's relative-position mode.  A key grid K1 does not take row-major
+    goes in column-major (K and V copied in that order, the two terms
+    swapped): the softmax does not depend on the order of the keys."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if bias is not None:
+        raise ValueError("flash_attention: a per-key bias and relative-position terms "
+                         "are not taken together")
+    if q.dtype != torch.bfloat16 or d != 64:
+        raise ValueError(f"flash_attention: the relative-position mode runs bf16 at "
+                         f"d = 64, not {q.dtype} at d = {d}")
+    kw = rel.kw
+    kh = lk // kw
+    if kh * kw != lk:
+        raise ValueError(f"flash_attention: {lk} keys are no grid of {kw} columns")
+    for name, t, n in (("rh", rel.rh, kh), ("rw", rel.rw, kw)):
+        if t.shape != (b * h, lq, n) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be a contiguous ({b * h}, "
+                             f"{lq}, {n}) fp32 tensor on q's device")
+    if not relpos_fits(kw):
+        if not relpos_fits(kh):
+            raise ValueError(f"flash_attention: no kernel for a {kh} x {kw} key grid")
+        k, v = (t.reshape(b, h, kh, kw, d).transpose(2, 3).reshape(b, h, lk, d) for t in (k, v))
+        rel = RelPos(rel.rw, rel.rh, kh)
+    return forward_only(K1.name, lambda q, k, v, rh, rw: _launch(K1, q, k, v, None, scale,
+                                                                 RelPos(rh, rw, rel.kw)),
+                        q, k, v, rel.rh, rel.rw)
+
+
+def _launch(kernel, q, k, v, bias, scale, rel=None):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -105,8 +204,11 @@ def _launch(kernel, q, k, v, bias, scale):
     def strides(t):
         return (ctypes.c_longlong * 3)(*t.stride()[:3])
 
-    kernel.launch(_DTYPES[q.dtype], d, ptr(q), ptr(k), ptr(v), ptr(bias),
-                  ptr(out), strides(q), strides(k), strides(v), strides(out),
-                  0 if bias is None else bias.stride(0), b, h, lq, lk,
-                  float(scale), stream_handle(q.device))
+    args = [_DTYPES[q.dtype], d, ptr(q), ptr(k), ptr(v), ptr(bias),
+            ptr(out), strides(q), strides(k), strides(v), strides(out),
+            0 if bias is None else bias.stride(0), b, h, lq, lk, float(scale)]
+    if kernel is K1:
+        args += ([ptr(None), ptr(None), 0, 0] if rel is None else
+                 [ptr(rel.rh), ptr(rel.rw), rel.rh.shape[-1], rel.kw])
+    kernel.launch(*args, stream_handle(q.device))
     return out

@@ -129,6 +129,15 @@ METRICS = Metrics()
 #   serve.queued    a request in MicroBatcher's queue, submit to its batch
 #   serve.batch     the batcher's worker from a batch's selection to its last
 #                   answer handed out (stacking, the call, the copies back)
+#   model.vit       ViTMatte's ViTDet backbone (models/vitmatte.py)
+#   model.vitmatte_decoder  its detail decoder
+# (pipeline.heavy also wraps ViTMattePipeline's model call.)  The model spans
+# fire on eager calls only: a replayed heavy step runs no Python.
+#
+# Counters in METRICS beside them: heavy.* (pipeline/graphs.py);
+# vitmatte.tables_built, the position tables ViTMatte makes, one set a token
+# grid (0 in a window that meets no new photo size); attention.relpos_launches,
+# K1's launches in its relative-position mode, replays included.
 # Stamps are time.time_ns(), the clock torch.profiler's events carry, so a
 # span can be intersected with a trace's device intervals.  No span enters
 # torch.profiler's own event stream (record_function): a trace with the

@@ -14,11 +14,17 @@ the five readings of its spans, until matbench reads them itself:
 
 Beside them: the heavy step's graph counters over the run (captures,
 replays, fallbacks, eager calls) and replays over heavy calls, which is 1
-less the first call of each key where the graphs engage; and the card's
-memory at the stretch's close, while the pipeline lives: allocated,
-reserved, and the part of reserved that graph pools hold.  On the replayed
-calls the model's Python does not run, so model.unet and quant.dequant
-spans come from eager calls only.
+less the first call of each key where the graphs engage; ViTMatte's
+counters over the run and inside the window (``vitmatte.tables_built``,
+position tables made, which reads 0 in the window;
+``attention.relpos_launches``, K1's launches in its relative-position
+mode) and the host ms of its two spans, ``model.vit`` and
+``model.vitmatte_decoder``, per eager call (for this cell the recorder runs
+from the set-up on, where its eager calls are); and the card's memory at the
+stretch's close, while the pipeline lives: allocated, reserved, and the
+part of reserved that graph pools hold.  On the replayed calls the model's
+Python does not run, so model.unet, model.vit, model.vitmatte_decoder and
+quant.dequant spans come from eager calls only.
 
     python3 tools/span_readings.py --workload <cell> --seed <n> [--seconds 40] [--recorder 0|1]
     python3 tools/span_readings.py --workload <cell> --seed <n> --seconds 8 --rehearse   # CPU, tiny
@@ -120,6 +126,8 @@ def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
 
 HEAVY_COUNTERS = ("heavy.graph_captures", "heavy.graph_replays", "heavy.graph_fallbacks",
                   "heavy.eager")
+VITMATTE_COUNTERS = ("vitmatte.tables_built", "attention.relpos_launches")
+VITMATTE_SPANS = ("model.vit", "model.vitmatte_decoder")
 
 
 def heavy_graphs(counters) -> dict:
@@ -127,6 +135,19 @@ def heavy_graphs(counters) -> dict:
     out = {k: counters.get(k, 0.0) for k in HEAVY_COUNTERS}
     calls = sum(out.values())
     out["heavy.graph_replay_share"] = out["heavy.graph_replays"] / calls if calls else None
+    return out
+
+
+def vitmatte(counters, at_open, spans) -> dict:
+    """ViTMatte's counters over the run and inside the window (from its
+    open to the run's end), and the mean host ms of its spans."""
+    out = {}
+    for k in VITMATTE_COUNTERS:
+        out[k] = counters.get(k, 0.0)
+        out[k + ".in_window"] = counters.get(k, 0.0) - at_open.get(k, 0.0)
+    for name in VITMATTE_SPANS:
+        ms = [(s.end_ns - s.start_ns) / 1e6 for s in spans if s.name == name]
+        out[name + "_ms"] = sum(ms) / len(ms) if ms else None
     return out
 
 
@@ -163,12 +184,14 @@ def main():
     from sdmatte_tpu_torch.utils import observability as obs
 
     got = {}
+    vit = a.workload.startswith("vitmatte")
     reset = harness._reset_peak
 
     def reset_peak(device):
         reset(device)
         got["w0_ns"] = time.time_ns()
-        if a.recorder:
+        got["counters_at_open"] = dict(obs.METRICS.counters)
+        if a.recorder and not vit:
             obs.start()
     harness._reset_peak = reset_peak
 
@@ -198,8 +221,12 @@ def main():
         sys.path.insert(0, str(ROOT / "matbench" / "tests"))
         import conftest as tiny
         _, cfg = harness.find_cell(harness.load_benchmark(), a.workload)
-        kw = dict(conf=tiny.tiny_conf(cfg["name"]),
-                  mix=tiny.small_mix("open" if "serve" in a.workload else "closed"))
+        if cfg["name"].startswith("vitmatte"):
+            import test_matbench_vitmatte as tiny_vit
+            kw = dict(conf=tiny_vit.tiny_conf(), mix=tiny_vit.small_mix())
+        else:
+            kw = dict(conf=tiny.tiny_conf(cfg["name"]),
+                      mix=tiny.small_mix("open" if "serve" in a.workload else "closed"))
         if "w8" in a.workload:
             from sdmatte_tpu_torch.ops import quant
             quant.STORAGE_MIN_ELEMS = 1024
@@ -214,6 +241,8 @@ def main():
     else:
         device = torch.device("cuda", 0)
     print(f"card: {harness.card_note()}", file=sys.stderr)
+    if a.recorder and vit:        # its spans fire at the eager first calls, in the set-up
+        obs.start()
     res = harness.run(a.workload, a.seed, a.seconds, True, device=device, t0=mrun.T0, **kw)
     for note in res.notes:
         print(note, file=sys.stderr)
@@ -226,8 +255,10 @@ def main():
            "idle_pct": 100 * (1 - r.busy_s / r.window_s) if r.window_s else None,
            "correct": res.correct, **heavy_graphs(obs.METRICS.counters),
            **got.get("memory", {})}
+    spans, out["dropped"] = got["drained"]
+    if vit:
+        out.update(vitmatte(obs.METRICS.counters, got.get("counters_at_open", {}), spans))
     if a.recorder:
-        spans, out["dropped"] = got["drained"]
         window = (got["w0_ns"], got["w0_ns"] + int(a.seconds * 1e9))
         out.update(readings(spans, got.get("busy", []), got.get("bounds", (math.inf, math.inf)),
                             r.mattes, window))
