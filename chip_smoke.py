@@ -368,13 +368,14 @@ class Smoke:
 
     def relpos_inputs(self, shape):
         """q, k, v sliced from one (B, L, 3, H, 64) bf16 tensor, as ViTMatte's
-        are, and fp32 terms Rh, Rw of the scores' own scale."""
-        from sdmatte_tpu_torch.ops.flash_attention import RelPos
+        are, and bf16 terms Rh, Rw as ops/attention.relpos_terms makes them,
+        from tables scaled to give terms of the scores' own scale."""
+        from sdmatte_tpu_torch.ops.attention import relpos_terms
         b, h, kh, kw = shape
         n, d = kh * kw, 64
         qkv = self.randn(b, n, 3, h, d, dtype=self.torch.bfloat16)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        rel = RelPos(self.randn(b * h, n, kh), self.randn(b * h, n, kw), kw)
+        rel = relpos_terms(q, self.randn(kh, kh, d) / 8, self.randn(kw, kw, d) / 8)
         return q, k, v, rel, d ** -0.5
 
     def check_attention(self):
@@ -626,8 +627,8 @@ class Smoke:
 
     def time_relpos(self, shape):
         """K1's relative-position mode at one shape.  Its operations are the
-        QK and PV products; its bytes q, k, v, o in bf16 and the two fp32
-        terms read once.  The yardstick is SDPA with the bias formed whole in
+        QK and PV products; its bytes q, k, v, o and the two terms in bf16,
+        each read once.  The yardstick is SDPA with the bias formed whole in
         bf16 ((B, H, Lq, Lk)), where it fits on the card."""
         import torch.nn.functional as tF
         from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
@@ -651,7 +652,7 @@ class Smoke:
             t["library_note"] = (f"SDPA's bias alone would take {bias_bytes / 1e9:.0f} GB "
                                  f"in bf16")
         flops = 4 * b * h * n * n * d
-        nbytes = 2 * b * h * 4 * n * d + 4 * b * h * n * (kh + kw)
+        nbytes = 2 * b * h * 4 * n * d + 2 * b * h * n * (kh + kw)
         t["flops"], t["bytes"] = flops, nbytes
         t["bound_ms"], t["bound_by"] = bound(flops, nbytes)
         t["mufu_ms"] = b * h * n * n / MUFU_EX2_PER_S * 1e3

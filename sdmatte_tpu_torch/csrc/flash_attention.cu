@@ -46,38 +46,44 @@
 //
 // K1's relative-position mode (flash_fwd_relpos_sm90, bf16, d = 64: ViTMatte's
 // ViTDet blocks) adds a per-(query, key) bias made of two decomposed terms,
-//   out = softmax_k(scale * q.k + Rh[q, k / kw] + Rw[q, k % kw]) @ v,
-// with Rh (B*H, Lq, kh) and Rw (B*H, Lq, kw) fp32 given by the caller (two
+//   out = softmax_k(scale * q.k + Rh[q, row(k)] + Rw[q, col(k)]) @ v,
+// with Rh (B*H, Lq, kh) and Rw (B*H, Lq, kw) bf16 given by the caller (two
 // small GEMMs on the unscaled q) and the keys row-major on a kh x kw grid.
 // The (Lq, Lk) bias is never formed: at a 12 MP photo's 47,880 tokens it
-// would be 110 GB a block in fp32.  What bounds the mode: at the global
-// blocks' shapes operations again (kh * kw keys, 4 * Lk * d flops a row
-// against kh + kw terms), but the softmax side, which already binds the
-// per-key path, gains one fp32 add a score and the lookups of both terms; in
-// the windows (Lq = Lk = 196) the bytes of q, k, v and o.  So the terms come
-// from shared memory, never from device memory inside the tile loop:
-//   - Rw of the CTA's 128 query rows is staged whole, once, by the consumers
-//     (each warpgroup its 64 rows while Q and K load), in bf16: the main
-//     path's terms are products of bf16 GEMMs, so this is exact there, and it
-//     leaves room for three K/V stages beside Rw (a first design held Rw in
-//     fp32 beside two stages, and the K/V loads' latency showed); the row
-//     stride is kw rounded up to 8 mod 64 values, so that a warp's 32-bit
-//     reads of eight rows fall in distinct banks;
-//   - Rh changes only at a key row's end: for each K tile the producer warp
-//     stages the few rows the tile spans (127 / kw + 2 at most; two at the
-//     global shapes) for the 128 query rows beside K, in the K/V ring, by
-//     cp.async copies that arrive on the tile's barrier when they land (a
-//     first design loaded them through registers, one load's latency after
-//     another, and starved the consumers: 13% of the bound);
-//   - the terms stay in natural units: the row max is taken on
-//     u = s * scale + Rh + Rw and p = 2^(u * log2(e) - max * log2(e)), one
-//     FFMA, so a score costs one fp32 add over the per-key path;
-//   - a thread walks its 32 keys of a tile with one division at the tile's
-//     start and a compare-and-subtract per 8 keys (kw >= 8), and its two
-//     columns of a pair share one Rh value (kw even);
-//   - Rw fits for kw <= 392 (grids up to 6,272 px wide): the wrapper hands a
-//     wider grid over with its keys column-major.
-// Keys past Lk score -inf, as in the unbiased path.
+// would be 110 GB a block in fp32.  What bounds the mode is what bounds the
+// per-key path, its softmax side (MUFU exp2 and fp32 issue); a first design
+// added the terms inside the softmax, a walk over the tile's keys on the grid
+// and two shared-memory lookups and an add a score, about four issue slots
+// over the per-key path's five, and ran at 22.5% of the bound against the
+// per-key path's 41%.  So the terms cost the softmax nothing here:
+//   - a key tile is 2-D: 8 grid rows x 16 grid columns, cut by one 5-D TMA
+//     map of K (and one of V), (d, column, row, head, batch) with box
+//     (64, 16, 8, 1, 1), which lands as the per-key path's 128 x 64
+//     swizzled tile, key t = 16 r + c; TMA zero-fills the slots past the grid
+//     (190 x 252 pads to 192 x 256, +2.7%; a 14 x 14 window to 16 x 16, the
+//     two tiles it took before).  Row blocks outside, column blocks inside;
+//   - within a tile a query row meets 16 Rw and 8 Rh values, so the bias is a
+//     product: S = [Q | A] [K | B]^T, the QK wgmma two k16 steps deeper.  B
+//     is a constant 128 x 32 one-hot (key t: 1 / scale at lanes c and
+//     16 + r; 1/8 at d = 64, exact in bf16), staged once a CTA in the K
+//     tile's layout; A is the tile's [Rw | Rh] for the thread's query rows,
+//     from registers (RS): TMA brings three 8-term x 128-row boxes a tile
+//     (Rw's two halves, Rh) in the K/V ring, on the K tile's barrier, and
+//     each thread reads its six words of them.  So S = q.k + (Rw + Rh) /
+//     scale exactly (bf16 products of 1 / scale, fp32 sums);
+//   - on a tile ragged at the grid's edge (the last column and row blocks;
+//     every window) a lane past the grid carries -2^100 in A, finite (-inf
+//     times the one-hot's zeros would give NaN), a select on six registers a
+//     tile; those keys score at most -2^103 and weigh 0;
+//   - the softmax is then the per-key path's unbiased one: one FFMA, ex2,
+//     max and sum a score, no key walk, no lookups, no per-tile mask.  The
+//     tensor cores do 25% more (QK depth 64 -> 96, PV unchanged), which the
+//     softmax side's bound leaves room for;
+//   - the terms need 16-byte row strides for TMA: ops/attention.relpos_terms
+//     writes them so; the wrapper copies terms that are not;
+//   - any grid goes in as it is: the masks above cover a grid narrower or
+//     shorter than one tile (a box's slots past the grid, even all of them,
+//     come zero-filled), at the cost of the padding.
 //
 // K2 in bf16 (flash_fwd_d512_sm90, the main path) is built for Hopper as well,
 // around what d = 512 forces.  It is bound by the tensor cores alone (2048
@@ -121,8 +127,6 @@ namespace {
 
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // ops/flash_attention.py MASK_VALUE
 constexpr float kLog2e = 1.4426950408889634f;
-// relative-position mode: the Rw pairs a consumer thread has in flight at once
-constexpr int kRelBatch = 8;
 
 struct AttnParams {
   const void* q;
@@ -147,17 +151,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 16 : 0));
-}
-// A 4-byte async copy through L1; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-// An arrive on `bar` once this thread's earlier cp.async copies have landed;
-// it counts as one of the barrier's expected arrivals.
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -432,8 +425,6 @@ struct Fa3 {
   static constexpr int kOffBias = kOffV + STAGES * kTileBytes;
   static constexpr int kOffBar = kOffBias + STAGES * kBK * 4;
   static constexpr int kBars = 1 + 3 * STAGES;
-  // relative-position mode: the Rh ring (STAGES x 128 rows x nrs) and Rw (128 rows x ldw)
-  static constexpr int kOffRel = (kOffBar + kBars * 8 + 15) & ~15;
   // setmaxnreg: the producer warpgroup gives its registers to the consumers
   // (384 threads x 168 at launch = 128 x kProducerRegs + 256 x kConsumerRegs)
   static constexpr int kProducerRegs = 24;
@@ -452,11 +443,6 @@ struct Fa3Params {
   int H, Lq, Lk;
   float scale_log2;  // scale * log2(e)
   int panels;        // K2: 64-column panels of d (a runtime value on purpose, see its QK loop)
-  // relative-position mode: Rh (B*H, Lq, kh), Rw (B*H, Lq, kw) fp32; nrs, ldw: shared-memory strides
-  const float* rh;
-  const float* rw;
-  int kh, kw, nrs, ldw;
-  float scale;       // the natural-units scale (mode 2)
 };
 
 __device__ __forceinline__ int pick(int which, int row, int h, int b) {
@@ -579,77 +565,6 @@ __device__ __forceinline__ void fa3_softmax(float (&s)[N / 2], const float* bias
   l_hi = l_hi * a_hi + sum_hi;
 }
 
-// The relative-position mode's online softmax in natural units: u = s * scale
-// + Rh[row, r] + Rw[row, c] for key k0 + column, r = the key's grid row less
-// the tile's first, c = its grid column; keys past Lk (valid < N on the last
-// tile) are set to -inf; the running max m is in natural units and p =
-// 2^(u * log2(e) - m * log2(e)).  rh_*: the tile's Rh rows of this thread's two
-// query rows; rw_*: their Rw rows, bf16 pairs (a key and the next, which share
-// a grid row since kw is even).
-template <int N>
-__device__ __forceinline__ void fa3_softmax_rel(float (&s)[N / 2], const float* rh_lo,
-                                                const float* rh_hi, const uint32_t* rw_lo,
-                                                const uint32_t* rw_hi, int k0, int kw, float scale,
-                                                int tig, int valid, float& m_lo, float& m_hi,
-                                                float& l_lo, float& l_hi, float& a_lo,
-                                                float& a_hi) {
-  const int key = k0 + tig * 2;
-  const int kw2 = kw >> 1;
-  int r = key / kw;
-  int c2 = (key - r * kw) >> 1;  // the pair's column, in pairs
-  r -= k0 / kw;
-#pragma unroll
-  for (int jj = 0; jj < N / 8; ++jj) {
-    if (jj > 0) {  // 8 keys on: at most one row end, since kw >= 8
-      c2 += 4;
-      const bool wrap = c2 >= kw2;
-      c2 = wrap ? c2 - kw2 : c2;
-      r += wrap;
-    }
-    const uint32_t pl = rw_lo[c2], ph = rw_hi[c2];
-    const float2 wl = make_float2(__uint_as_float(pl << 16), __uint_as_float(pl & 0xffff0000u));
-    const float2 wh = make_float2(__uint_as_float(ph << 16), __uint_as_float(ph & 0xffff0000u));
-    const float hl = rh_lo[r], hh = rh_hi[r];
-    s[4 * jj + 0] = fmaf(s[4 * jj + 0], scale, hl + wl.x);
-    s[4 * jj + 1] = fmaf(s[4 * jj + 1], scale, hl + wl.y);
-    s[4 * jj + 2] = fmaf(s[4 * jj + 2], scale, hh + wh.x);
-    s[4 * jj + 3] = fmaf(s[4 * jj + 3], scale, hh + wh.y);
-  }
-  if (valid < N) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i)
-      if ((i / 4) * 8 + tig * 2 + (i & 1) >= valid) s[i] = -INFINITY;
-  }
-  float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-  for (int jj = 0; jj < N / 8; ++jj) {
-    mx_lo = fmaxf(mx_lo, fmaxf(s[4 * jj + 0], s[4 * jj + 1]));
-    mx_hi = fmaxf(mx_hi, fmaxf(s[4 * jj + 2], s[4 * jj + 3]));
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-  }
-  a_lo = sm90::ex2((m_lo - mx_lo) * kLog2e);  // m = -inf before the first tile: 2^-inf = 0
-  a_hi = sm90::ex2((m_hi - mx_hi) * kLog2e);
-  m_lo = mx_lo;
-  m_hi = mx_hi;
-  const float nm_lo = -mx_lo * kLog2e, nm_hi = -mx_hi * kLog2e;
-  float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < N / 8; ++jj) {
-    s[4 * jj + 0] = sm90::ex2(fmaf(s[4 * jj + 0], kLog2e, nm_lo));
-    s[4 * jj + 1] = sm90::ex2(fmaf(s[4 * jj + 1], kLog2e, nm_lo));
-    s[4 * jj + 2] = sm90::ex2(fmaf(s[4 * jj + 2], kLog2e, nm_hi));
-    s[4 * jj + 3] = sm90::ex2(fmaf(s[4 * jj + 3], kLog2e, nm_hi));
-    sum_lo += s[4 * jj + 0] + s[4 * jj + 1];
-    sum_hi += s[4 * jj + 2] + s[4 * jj + 3];
-  }
-  l_lo = l_lo * a_lo + sum_lo;
-  l_hi = l_hi * a_hi + sum_hi;
-}
-
 // P (fp32 S fragment) -> bf16 A fragments of the PV product, one per 16 keys.
 template <int N>
 __device__ __forceinline__ void fa3_pack(const float (&s)[N / 2], uint32_t (&pa)[N / 16][4]) {
@@ -662,18 +577,13 @@ __device__ __forceinline__ void fa3_pack(const float (&s)[N / 2], uint32_t (&pa)
   }
 }
 
-// kMode: 0 no bias, 1 a per-key bias, 2 the relative-position terms (D = 64).
-template <int D, int STAGES, int kMode>
-__device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
+template <int D, int STAGES, bool kBias>
+__global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__ Fa3Params p) {
   using S = Fa3<D, STAGES>;
-  constexpr bool kBias = kMode == 1;
-  static_assert(kMode != 2 || D == 64, "the relative-position mode is built for d = 64");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   float* bias_s = reinterpret_cast<float*>(smem + S::kOffBias);
-  float* rel_h_s = reinterpret_cast<float*>(smem + S::kOffRel);  // mode 2 only
-  __nv_bfloat16* rel_w_s = reinterpret_cast<__nv_bfloat16*>(rel_h_s + STAGES * S::kBQ * p.nrs);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::kOffBar);
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;  // K tile and its bias
@@ -688,7 +598,7 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(k_full + s, kMode == 2 ? 33 : 32);
+      sm90::mbar_init(k_full + s, 32);
       sm90::mbar_init(v_full + s, 1);
       sm90::mbar_init(kv_empty + s, 256);
     }
@@ -727,23 +637,8 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
           sm90::mbar_arrive_expect_tx(v_full + st, S::kTileBytes);
           for (int pn = 0; pn < S::kPanels; ++pn)
             tma_rows(vt + pn * S::kPanelBytes, &p.tv, p.ov, v_full + st, pn * 64, j * S::kBK, h, b);
-        } else if constexpr (kMode != 2) {
+        } else {
           sm90::mbar_arrive(k_full + st);
-        }
-        if constexpr (kMode == 2) {
-          // the Rh rows this tile's keys span, for each of the 128 query rows,
-          // copied without waiting; each lane's copies arrive when they land
-          float* rs = rel_h_s + st * S::kBQ * p.nrs;
-          const int r0 = (j * S::kBK) / p.kw;
-          for (int i = lane; i < S::kBQ; i += 32) {
-            const int q = q0 + i;
-            const float* src = p.rh + (size_t(blockIdx.y) * p.Lq + q) * p.kh + r0;
-            for (int rr = 0; rr < p.nrs; ++rr) {
-              const bool ok = q < p.Lq && r0 + rr < p.kh;
-              cp_async4(rs + i * p.nrs + rr, ok ? src + rr : p.rh, ok);
-            }
-          }
-          cp_async_arrive(k_full + st);
         }
       }
     }
@@ -766,43 +661,6 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
 
-    // mode 2: this warpgroup's 64 Rw rows as bf16 pairs, while Q and K load
-    const int ldw2 = p.ldw >> 1;
-    const uint32_t* rw_lo = reinterpret_cast<const uint32_t*>(rel_w_s) +
-                            (wg * 64 + warp * 16 + g) * ldw2;
-    const uint32_t* rw_hi = rw_lo + 8 * ldw2;
-    const int rh_lo = (wg * 64 + warp * 16 + g) * p.nrs, rh_hi = rh_lo + 8 * p.nrs;
-    if constexpr (kMode == 2) {
-      // the 64 rows are contiguous in Rw: pair e = i * kw2 + c2 is row i, column
-      // c2; a thread's pairs are 128 apart, (di, dc) on in (row, column)
-      const int kw2 = p.kw >> 1, n = 64 * kw2, rows = p.Lq - q0 - wg * 64;
-      const int di = 128 / kw2, dc = 128 - di * kw2;
-      const float2* src = reinterpret_cast<const float2*>(p.rw) +
-                          (size_t(blockIdx.y) * p.Lq + q0 + wg * 64) * kw2;
-      uint32_t* dst = reinterpret_cast<uint32_t*>(rel_w_s) + wg * 64 * ldw2;
-      int i0 = tw / kw2, c0 = tw - (tw / kw2) * kw2;
-      for (int e0 = tw; e0 < n; e0 += 128 * kRelBatch) {
-        float2 w[kRelBatch];  // a batch of loads in flight, then its stores
-        int i = i0, c2 = c0;
-#pragma unroll
-        for (int t = 0; t < kRelBatch; ++t) {
-          const int e = e0 + 128 * t;
-          w[t] = e < n && i < rows ? __ldg(src + e) : make_float2(0.f, 0.f);
-          i += di, c2 += dc;
-          if (c2 >= kw2) c2 -= kw2, ++i;
-        }
-        i = i0, c2 = c0;
-#pragma unroll
-        for (int t = 0; t < kRelBatch; ++t) {
-          if (e0 + 128 * t < n) dst[i * ldw2 + c2] = sm90::pack_bf16(w[t].x, w[t].y);
-          i += di, c2 += dc;
-          if (c2 >= kw2) c2 -= kw2, ++i;
-        }
-        i0 = i, c0 = c2;
-      }
-      sm90::named_bar_sync(3 + wg, 128);
-    }
-
     if (wg == 1) sm90::named_bar_arrive(1, 256);
     sm90::mbar_wait(q_full, 0);
 
@@ -815,12 +673,8 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
       sm90::named_bar_arrive(bar_other, 256);
       sm90::wgmma_wait<0>();
       sm90::reg_fence(s);
-      if constexpr (kMode == 2)
-        fa3_softmax_rel<128>(s, rel_h_s + rh_lo, rel_h_s + rh_hi, rw_lo, rw_hi, 0, p.kw,
-                             p.scale, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
-      else
-        fa3_softmax<kBias, 128>(s, bias_s, p.scale_log2, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo,
-                                a_hi);
+      fa3_softmax<kBias, 128>(s, bias_s, p.scale_log2, tig, p.Lk, m_lo, m_hi, l_lo, l_hi, a_lo,
+                              a_hi);
       fa3_pack<128>(s, pa);
 
       for (int j = 1; j < nk; ++j) {
@@ -833,15 +687,8 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
         sm90::named_bar_arrive(bar_other, 256);
         sm90::wgmma_wait<1>();  // S_j is ready; the PV product still runs
         sm90::reg_fence(s);
-        if constexpr (kMode == 2) {
-          const float* rs = rel_h_s + st * S::kBQ * p.nrs;
-          fa3_softmax_rel<128>(s, rs + rh_lo, rs + rh_hi, rw_lo, rw_hi, j * S::kBK, p.kw,
-                               p.scale, tig, p.Lk - j * S::kBK, m_lo, m_hi, l_lo, l_hi,
-                               a_lo, a_hi);
-        } else {
-          fa3_softmax<kBias, 128>(s, bias_s + st * S::kBK, p.scale_log2, tig, p.Lk - j * S::kBK,
-                                  m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
-        }
+        fa3_softmax<kBias, 128>(s, bias_s + st * S::kBK, p.scale_log2, tig, p.Lk - j * S::kBK,
+                                m_lo, m_hi, l_lo, l_hi, a_lo, a_hi);
         sm90::wgmma_wait<0>();
         sm90::reg_fence(o);
         sm90::mbar_arrive(kv_empty + pst);
@@ -920,15 +767,255 @@ __device__ __forceinline__ void fa3_fwd(const Fa3Params& p) {
   }
 }
 
-template <int D, int STAGES, bool kBias>
-__global__ void __launch_bounds__(384, 1) flash_fwd_sm90(const __grid_constant__ Fa3Params p) {
-  fa3_fwd<D, STAGES, kBias ? 1 : 0>(p);
+// ---- K1's relative-position mode: 2-D key tiles, the terms through QK (bf16, d = 64) ----
+
+namespace rel {
+constexpr int kBQ = 128, kBK = 128;
+constexpr int kRows = 8, kCols = 16;   // a key tile: 8 grid rows x 16 grid columns, t = 16 r + c
+constexpr int kStages = 3;
+constexpr int kTileBytes = 128 * 128;  // 128 rows of 64 bf16: Q, a K or V tile, the one-hot B
+constexpr int kTermBytes = 128 * 16;   // 128 query rows of 8 bf16 terms
+constexpr int kThreads = 384;          // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int kOffK = kTileBytes;      // after Q
+constexpr int kOffV = kOffK + kStages * kTileBytes;
+constexpr int kOffB = kOffV + kStages * kTileBytes;
+// per stage three term boxes: Rw of the tile's columns 0-7, Rw of its columns
+// 8-15, Rh of its rows
+constexpr int kOffT = kOffB + kTileBytes;
+constexpr int kOffBar = kOffT + kStages * 3 * kTermBytes;
+constexpr int kBars = 1 + 3 * kStages;
+constexpr size_t kSmem = kOffBar + kBars * 8 + 1024;  // + slack to align the base
+// A term lane of a key past the grid: -2^100 in bf16, finite (a -inf would
+// give -inf * 0 = NaN in the other keys' sums) and far below any score.
+constexpr uint32_t kMaskBf16 = 0xF180u;
+}  // namespace rel
+
+struct RelParams {
+  CUtensorMap tq, tk, tv;  // Q 4-D as K1's; K, V 5-D (d, then column, row, head, batch by stride)
+  CUtensorMap trh, trw;    // 3-D (term, query row, batch*head)
+  int oq[3];
+  int ok[4], ov[4];  // logical dim of map dims 1..4: 0 column, 1 row, 2 head, 3 batch
+  void* o;
+  long long o_sb, o_sh, o_sl;
+  int H, Lq, kh, kw;
+  int ncb, nk;        // column blocks of the grid, and tiles
+  float scale_log2;   // scale * log2(e)
+  uint32_t one;       // the one-hot's value, 1 / scale in bf16 (exact)
+};
+
+__device__ __forceinline__ int pick4(int which, int c, int r, int h, int b) {
+  return which == 0 ? c : which == 1 ? r : which == 2 ? h : b;
+}
+// The K or V tile of grid rows r0..r0+7 and columns c0..c0+15: the 128-key,
+// 128-byte-swizzled tile of the per-key path, key t = 16 (row - r0) + (column
+// - c0); TMA zero-fills the slots past the grid.
+__device__ __forceinline__ void tma_grid(void* dst, const CUtensorMap* map, const int (&ord)[4],
+                                         uint64_t* bar, int c0, int r0, int h, int b) {
+  sm90::tma_load_5d(dst, map, bar, 0, pick4(ord[0], c0, r0, h, b), pick4(ord[1], c0, r0, h, b),
+                    pick4(ord[2], c0, r0, h, b), pick4(ord[3], c0, r0, h, b));
 }
 
-template <int D, int STAGES>
-__global__ void __launch_bounds__(384, 1)
-    flash_fwd_relpos_sm90(const __grid_constant__ Fa3Params p) {
-  fa3_fwd<D, STAGES, 2>(p);
+// A bf16 pair with the mask in each lane that is not kept.
+__device__ __forceinline__ uint32_t mask_pair(uint32_t x, bool lo, bool hi) {
+  return (lo ? x & 0xffffu : rel::kMaskBf16) | (hi ? x & 0xffff0000u : rel::kMaskBf16 << 16);
+}
+
+// This thread's A fragments of the two extra k16 steps (rows `row` and row + 8
+// of the CTA; lanes 2 tig, 2 tig + 1 and 8 more): aw = Rw of the tile's
+// columns, ah = Rh of its rows (lanes 8-15 zero).  t: the stage's term boxes,
+// 4 words a query row.  cv, rv: the grid's columns and rows left from the
+// tile's first; a lane past them carries the mask.
+__device__ __forceinline__ void rel_terms(uint32_t (&aw)[4], uint32_t (&ah)[4],
+                                          const uint32_t* t, int row, int tig, int cv, int rv) {
+  constexpr int kBox = rel::kTermBytes / 4;
+  aw[0] = t[row * 4 + tig];
+  aw[1] = t[(row + 8) * 4 + tig];
+  aw[2] = t[kBox + row * 4 + tig];
+  aw[3] = t[kBox + (row + 8) * 4 + tig];
+  ah[0] = t[2 * kBox + row * 4 + tig];
+  ah[1] = t[2 * kBox + (row + 8) * 4 + tig];
+  ah[2] = ah[3] = 0u;
+  if (cv < rel::kCols || rv < rel::kRows) {  // a ragged tile, the same for the whole CTA
+    const int c = tig * 2;
+    aw[0] = mask_pair(aw[0], c < cv, c + 1 < cv);
+    aw[1] = mask_pair(aw[1], c < cv, c + 1 < cv);
+    aw[2] = mask_pair(aw[2], c + 8 < cv, c + 9 < cv);
+    aw[3] = mask_pair(aw[3], c + 8 < cv, c + 9 < cv);
+    ah[0] = mask_pair(ah[0], c < rv, c + 1 < rv);
+    ah[1] = mask_pair(ah[1], c < rv, c + 1 < rv);
+  }
+}
+
+// S (64 rows x 128 keys) = [Q | A] [K | B]^T: Q K^T from shared memory (depth
+// 64), then A from registers against the one-hot B (depth 32), so that
+// S = q.k + (Rw + Rh) / scale.
+__device__ __forceinline__ void rel_qk(float (&s)[64], uint32_t q_base, uint32_t k_base,
+                                       uint32_t b_base, const uint32_t (&aw)[4],
+                                       const uint32_t (&ah)[4]) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_ss_m64n128(s, sm90::desc_kmajor_sw128(q_base + kk * 32),
+                           sm90::desc_kmajor_sw128(k_base + kk * 32), kk > 0);
+  sm90::wgmma_rs_m64n128<0>(s, aw, sm90::desc_kmajor_sw128(b_base), 1);
+  sm90::wgmma_rs_m64n128<0>(s, ah, sm90::desc_kmajor_sw128(b_base + 32), 1);
+  sm90::wgmma_commit();
+}
+
+__global__ void __launch_bounds__(rel::kThreads, 1)
+    flash_fwd_relpos_sm90(const __grid_constant__ RelParams p) {
+  using namespace rel;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kOffBar);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;  // the K tile and its three term boxes
+  uint64_t* v_full = bars + 1 + kStages;
+  uint64_t* kv_empty = bars + 1 + 2 * kStages;
+
+  const int q0 = blockIdx.x * kBQ;
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(k_full + s, 1);
+      sm90::mbar_init(v_full + s, 1);
+      sm90::mbar_init(kv_empty + s, 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  // The one-hot B, K-major with the 128-byte swizzle like a K tile: key t =
+  // 16 r + c holds 1 / scale at lanes c and 16 + r, 0 elsewhere (lanes 32-63
+  // are never read).  Word w is row w / 32, 16-byte chunk (w / 4) % 8, which
+  // holds logical chunk ((w / 4) % 8) ^ (row % 8).
+  {
+    uint32_t* bw = reinterpret_cast<uint32_t*>(smem + kOffB);
+    for (int w = threadIdx.x; w < kTileBytes / 4; w += kThreads) {
+      const int t = w >> 5;
+      const int j = ((((w >> 2) & 7) ^ (t & 7)) << 3) + (w & 3) * 2;  // the word's first lane
+      const int c = t % kCols, r = 16 + t / kCols;
+      bw[w] = (j == c || j == r ? p.one : 0u) | (j + 1 == c || j + 1 == r ? p.one << 16 : 0u);
+    }
+    sm90::fence_proxy_async();  // the generic writes of B, before wgmma reads them
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      sm90::mbar_arrive_expect_tx(q_full, kTileBytes);
+      tma_rows(smem, &p.tq, p.oq, q_full, 0, q0, h, b);
+      int rb = 0, cb = 0;  // row blocks outside, column blocks inside
+      for (int j = 0; j < p.nk; ++j) {
+        const int st = j % kStages;
+        sm90::mbar_wait(kv_empty + st, ((j / kStages) & 1) ^ 1);
+        const int c0 = cb * kCols, r0 = rb * kRows;
+        unsigned char* tt = smem + kOffT + st * 3 * kTermBytes;
+        sm90::mbar_arrive_expect_tx(k_full + st, kTileBytes + 3 * kTermBytes);
+        tma_grid(smem + kOffK + st * kTileBytes, &p.tk, p.ok, k_full + st, c0, r0, h, b);
+        sm90::tma_load_3d(tt, &p.trw, k_full + st, c0, q0, blockIdx.y);
+        sm90::tma_load_3d(tt + kTermBytes, &p.trw, k_full + st, c0 + 8, q0, blockIdx.y);
+        sm90::tma_load_3d(tt + 2 * kTermBytes, &p.trh, k_full + st, r0, q0, blockIdx.y);
+        sm90::mbar_arrive_expect_tx(v_full + st, kTileBytes);
+        tma_grid(smem + kOffV + st * kTileBytes, &p.tv, p.ov, v_full + st, c0, r0, h, b);
+        if (++cb == p.ncb) cb = 0, ++rb;
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup, K1's ping-pong ----
+    sm90::setmaxnreg_inc<240>();
+    const int wg = threadIdx.x >> 7;
+    const int tw = threadIdx.x & 127;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
+    const int row = wg * 64 + warp * 16 + g;  // this thread's first query row in the CTA
+    const uint32_t q_base = sm90::smem_u32(smem) + wg * 64 * 128;
+    const uint32_t k_base = sm90::smem_u32(smem + kOffK);
+    const uint32_t v_base = sm90::smem_u32(smem + kOffV);
+    const uint32_t b_base = sm90::smem_u32(smem + kOffB);
+    const uint32_t* terms = reinterpret_cast<const uint32_t*>(smem + kOffT);
+    const int bar_mine = 1 + wg, bar_other = 2 - wg;
+
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, a_lo, a_hi;
+    float s[64];
+    uint32_t pa[8][4], aw[4], ah[4];
+
+    if (wg == 1) sm90::named_bar_arrive(1, 256);
+    sm90::mbar_wait(q_full, 0);
+    sm90::mbar_wait(k_full, 0);
+    rel_terms(aw, ah, terms, row, tig, p.kw, p.kh);
+    sm90::named_bar_sync(bar_mine, 256);
+    rel_qk(s, q_base, k_base, b_base, aw, ah);
+    sm90::named_bar_arrive(bar_other, 256);
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(s);
+    // the scores carry the terms: the unbiased softmax, every key of the tile kept
+    fa3_softmax<false, 128>(s, nullptr, p.scale_log2, tig, 128, m_lo, m_hi, l_lo, l_hi, a_lo,
+                            a_hi);
+    fa3_pack<128>(s, pa);
+
+    int rb = 0, cb = 0;
+    for (int j = 1; j < p.nk; ++j) {
+      if (++cb == p.ncb) cb = 0, ++rb;
+      const int st = j % kStages, pst = (j - 1) % kStages;
+      sm90::mbar_wait(k_full + st, (j / kStages) & 1);
+      rel_terms(aw, ah, terms + st * 3 * (kTermBytes / 4), row, tig, p.kw - cb * kCols,
+                p.kh - rb * kRows);
+      sm90::named_bar_sync(bar_mine, 256);
+      rel_qk(s, q_base, k_base + st * kTileBytes, b_base, aw, ah);  // S_j ...
+      sm90::mbar_wait(v_full + pst, ((j - 1) / kStages) & 1);
+      fa3_pv<64, 128>(o, pa, v_base + pst * kTileBytes);  // ... and O += P_{j-1} V_{j-1}
+      sm90::named_bar_arrive(bar_other, 256);
+      sm90::wgmma_wait<1>();  // S_j is ready; the PV product still runs
+      sm90::reg_fence(s);
+      fa3_softmax<false, 128>(s, nullptr, p.scale_log2, tig, 128, m_lo, m_hi, l_lo, l_hi, a_lo,
+                              a_hi);
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(o);
+      sm90::mbar_arrive(kv_empty + pst);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        o[4 * jj + 0] *= a_lo;
+        o[4 * jj + 1] *= a_lo;
+        o[4 * jj + 2] *= a_hi;
+        o[4 * jj + 3] *= a_hi;
+      }
+      fa3_pack<128>(s, pa);
+    }
+    const int lst = (p.nk - 1) % kStages;
+    sm90::named_bar_sync(bar_mine, 256);
+    sm90::mbar_wait(v_full + lst, ((p.nk - 1) / kStages) & 1);
+    fa3_pv<64, 128>(o, pa, v_base + lst * kTileBytes);
+    if (wg == 0) sm90::named_bar_arrive(bar_other, 256);  // warpgroup 1's last turn
+    sm90::wgmma_wait<0>();
+    sm90::reg_fence(o);
+
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float inv_lo = l_lo == 0.f ? 1.f : 1.f / l_lo;
+    const float inv_hi = l_hi == 0.f ? 1.f : 1.f / l_hi;
+    const int row_lo = q0 + row, row_hi = row_lo + 8;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = jj * 8 + tig * 2;
+      if (row_lo < p.Lq)
+        *reinterpret_cast<uint32_t*>(og + row_lo * p.o_sl + c) =
+            sm90::pack_bf16(o[4 * jj + 0] * inv_lo, o[4 * jj + 1] * inv_lo);
+      if (row_hi < p.Lq)
+        *reinterpret_cast<uint32_t*>(og + row_hi * p.o_sl + c) =
+            sm90::pack_bf16(o[4 * jj + 2] * inv_hi, o[4 * jj + 3] * inv_hi);
+    }
+  }
 }
 
 // ---- K2 on Hopper: d = 512 in bf16, d split over two warpgroups ----------------
@@ -1245,9 +1332,6 @@ cudaError_t launch_sm90(const AttnParams& a, const long long* qs, const long lon
   p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
   p.scale_log2 = a.scale * kLog2e;
   p.panels = 0;
-  p.rh = p.rw = nullptr;
-  p.kh = p.kw = p.nrs = p.ldw = 0;
-  p.scale = a.scale;
   auto kern = flash_fwd_sm90<D, STAGES, kBias>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(S::kSmem));
   if (err != cudaSuccess) return err;
@@ -1256,49 +1340,77 @@ cudaError_t launch_sm90(const AttnParams& a, const long long* qs, const long lon
   return cudaGetLastError();
 }
 
-// The relative-position mode's shared memory: Q, three K/V stages, the Rh ring
-// (fp32) and Rw (bf16).
-constexpr int kRelStages = 3;
-constexpr size_t kSmemOptin = 232448;  // the H100's opt-in limit per block
-
-inline int rel_nrs(int kw) { return (127 / kw + 2) | 1; }  // odd: no bank conflicts
-inline int rel_ldw(int kw) { return kw + ((8 - kw % 64) + 64) % 64; }
-inline size_t rel_smem(int kw) {
-  using S = Fa3<64, kRelStages>;
-  return size_t(S::kOffRel) + size_t(kRelStages) * S::kBQ * rel_nrs(kw) * 4 +
-         size_t(S::kBQ) * rel_ldw(kw) * 2 + 1024;
+// A 5-D TMA map over a (B, H, kh * kw, 64) bf16 tensor whose keys lie
+// row-major on a kh x kw grid, (b, h, key) strides in elements: d innermost,
+// then column, row, head and batch in order of stride, with a box of 64 x 16
+// columns x 8 rows.  ord[i] names the logical dim of map dim i + 1.
+cudaError_t grid_map(CUtensorMap* map, int (&ord)[4], const void* base, const long long* st,
+                     int B, int H, int kh, int kw) {
+  struct Dim {
+    uint64_t n;
+    long long stride;
+    int logical;
+    uint32_t box;
+  } dd[4] = {{uint64_t(kw), st[2], 0, uint32_t(rel::kCols)},
+             {uint64_t(kh), st[2] * kw, 1, uint32_t(rel::kRows)},
+             {uint64_t(H), st[1], 2, 1},
+             {uint64_t(B), st[0], 3, 1}};
+  for (int i = 1; i < 4; ++i)
+    for (int j = i; j > 0 && dd[j].stride < dd[j - 1].stride; --j) {
+      const Dim t = dd[j];
+      dd[j] = dd[j - 1];
+      dd[j - 1] = t;
+    }
+  uint64_t dims[5] = {64}, strides[4];
+  uint32_t box[5] = {64};
+  for (int i = 0; i < 4; ++i) {
+    dims[i + 1] = dd[i].n;
+    strides[i] = uint64_t(dd[i].stride) * 2;
+    box[i + 1] = dd[i].box;
+    ord[i] = dd[i].logical;
+  }
+  return sm90::make_map_bf16(map, 5, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
-// Whether the mode takes a key grid of kw columns in its key order: kw even and
-// at least 8 (a pair of keys shares a grid row; 8 keys on cross at most one row
-// end), and Rw's rows within shared memory (kw <= 392).
-inline bool rel_fits(int kw) { return kw >= 8 && kw % 2 == 0 && rel_smem(kw) <= kSmemOptin; }
 
-cudaError_t launch_relpos_sm90(const AttnParams& a, const float* rh, const float* rw, int kh,
-                               int kw, const long long* qs, const long long* ks,
+// A 3-D TMA map over the terms (B*H, Lq, n) bf16, row stride ld (a multiple
+// of 8), rows packed: boxes of 8 terms x 128 query rows.
+cudaError_t term_map(CUtensorMap* map, const void* base, int BH, int Lq, int n, int ld) {
+  const uint64_t dims[3] = {uint64_t(n), uint64_t(Lq), uint64_t(BH)};
+  const uint64_t strides[2] = {uint64_t(ld) * 2, uint64_t(ld) * Lq * 2};
+  const uint32_t box[3] = {8, 128, 1};
+  return sm90::make_map_bf16(map, 3, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+cudaError_t launch_relpos_sm90(const AttnParams& a, const void* rh, const void* rw, int kh,
+                               int kw, int ldh, int ldw, const long long* qs, const long long* ks,
                                const long long* vs, int batch, cudaStream_t stream) {
-  using S = Fa3<64, kRelStages>;
-  if (!rel_fits(kw) || kh < 1 || size_t(kh) * kw != size_t(a.Lk)) return cudaErrorInvalidValue;
-  Fa3Params p;
+  using namespace rel;
+  // the one-hot carries 1 / scale, which has to be exact in bf16 (1/8 at d = 64)
+  const float inv = 1.f / a.scale;
+  const __nv_bfloat16 one = __float2bfloat16(inv);
+  if (kw < 1 || kh < 1 || size_t(kh) * kw != size_t(a.Lk) || !(a.scale > 0.f) ||
+      __bfloat162float(one) != inv || ldh < kh || ldw < kw || ldh % 8 || ldw % 8)
+    return cudaErrorInvalidValue;
+  RelParams p;
+  const int bh = batch * a.H;
   cudaError_t err = attn_map(&p.tq, p.oq, a.q, qs, batch, a.H, a.Lq, 64);
-  if (err == cudaSuccess) err = attn_map(&p.tk, p.ok, a.k, ks, batch, a.H, a.Lk, 64);
-  if (err == cudaSuccess) err = attn_map(&p.tv, p.ov, a.v, vs, batch, a.H, a.Lk, 64);
+  if (err == cudaSuccess) err = grid_map(&p.tk, p.ok, a.k, ks, batch, a.H, kh, kw);
+  if (err == cudaSuccess) err = grid_map(&p.tv, p.ov, a.v, vs, batch, a.H, kh, kw);
+  if (err == cudaSuccess) err = term_map(&p.trh, rh, bh, a.Lq, kh, ldh);
+  if (err == cudaSuccess) err = term_map(&p.trw, rw, bh, a.Lq, kw, ldw);
   if (err != cudaSuccess) return err;
-  p.bias = nullptr;
-  p.bias_sb = 0;
   p.o = a.o;
   p.o_sb = a.o_sb, p.o_sh = a.o_sh, p.o_sl = a.o_sl;
-  p.H = a.H, p.Lq = a.Lq, p.Lk = a.Lk;
+  p.H = a.H, p.Lq = a.Lq, p.kh = kh, p.kw = kw;
+  p.ncb = (kw + kCols - 1) / kCols;
+  p.nk = p.ncb * ((kh + kRows - 1) / kRows);
   p.scale_log2 = a.scale * kLog2e;
-  p.panels = 0;
-  p.rh = rh, p.rw = rw;
-  p.kh = kh, p.kw = kw, p.nrs = rel_nrs(kw), p.ldw = rel_ldw(kw);
-  p.scale = a.scale;
-  auto kern = flash_fwd_relpos_sm90<64, kRelStages>;
-  const int smem = int(rel_smem(kw));
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  p.one = *reinterpret_cast<const uint16_t*>(&one);
+  err = cudaFuncSetAttribute(flash_fwd_relpos_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kSmem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + S::kBQ - 1) / S::kBQ, batch * a.H);
-  kern<<<grid, S::kThreads, smem, stream>>>(p);
+  const dim3 grid((a.Lq + kBQ - 1) / kBQ, bh);
+  flash_fwd_relpos_sm90<<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1362,22 +1474,23 @@ AttnParams make_params(const void* q, const void* k, const void* v, const float*
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, head,
-// row) for each of q, k, v, o (arrays of three).  rh, rw, kh, kw (K1 only,
-// appended before the stream): the relative-position terms, contiguous
-// (B*H, Lq, kh) and (B*H, Lq, kw) fp32, or null.  Returns a cudaError_t.
+// row) for each of q, k, v, o (arrays of three).  rh, rw, kh, kw, ldh, ldw
+// (K1 only, appended before the stream): the relative-position terms,
+// (B*H, Lq, kh) and (B*H, Lq, kw) bf16 with row strides ldh and ldw (multiples
+// of 8, rows packed), or null.  Returns a cudaError_t.
 extern "C" int sdm_flash_attention_k1(int dtype, int d, const void* q, const void* k,
                                       const void* v, const float* bias, void* o,
                                       const long long* qs, const long long* ks,
                                       const long long* vs, const long long* os,
                                       long long bias_sb, int B, int H, int Lq, int Lk,
-                                      float scale, const float* rh, const float* rw, int kh,
-                                      int kw, void* stream) {
+                                      float scale, const void* rh, const void* rw, int kh,
+                                      int kw, int ldh, int ldw, void* stream) {
   const AttnParams p = make_params(q, k, v, bias, o, qs, ks, vs, os, bias_sb, H, Lq, Lk, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rh != nullptr || rw != nullptr) {
     if (rh == nullptr || rw == nullptr || bias != nullptr || dtype != 1 || d != 64)
       return int(cudaErrorInvalidValue);
-    return launch_relpos_sm90(p, rh, rw, kh, kw, qs, ks, vs, B, s);
+    return launch_relpos_sm90(p, rh, rw, kh, kw, ldh, ldw, qs, ks, vs, B, s);
   }
   // Without a bias (and with a positive scale) K1 takes the max on the raw
   // scores and saves one fp32 operation per score.
@@ -1392,10 +1505,6 @@ extern "C" int sdm_flash_attention_k1(int dtype, int d, const void* q, const voi
   if (dtype == 0 && d == 128) return launch<float, 128, 64, 64, 1, 2>(p, B, s);
   return int(cudaErrorInvalidValue);
 }
-
-// 1 if K1's relative-position mode takes a key grid of kw columns row-major
-// (ops/flash_attention.py puts any other grid in column-major), else 0.
-extern "C" int sdm_relpos_fits(int kw) { return rel_fits(kw) ? 1 : 0; }
 
 extern "C" int sdm_flash_attention_k2(int dtype, int d, const void* q, const void* k,
                                       const void* v, const float* bias, void* o,

@@ -37,12 +37,14 @@ def relpos_terms(q, table_h, table_w) -> RelPos:
     tables indexed [query row, key row] and [query column, key column].
 
     ``rh[q, i] = q . table_h[row(q), i]`` and ``rw[q, j] = q . table_w[col(q),
-    j]``: two batched products in q's dtype, written out in fp32."""
+    j]``: two batched products in q's dtype (bf16 on the card, their own
+    values, nothing rounded again), written into rows padded to a multiple of
+    8 values, the 16-byte row stride K1's TMA loads need."""
     b, h, n, d = q.shape
     gh, gw = table_h.shape[0], table_w.shape[0]
     grid = q.reshape(b, h, gh, gw, d)
-    rh = torch.empty((b * h, n, gh), dtype=torch.float32, device=q.device)
-    rw = torch.empty((b * h, n, gw), dtype=torch.float32, device=q.device)
+    rh, rw = (torch.empty((b * h, n, -(-k // 8) * 8), dtype=q.dtype, device=q.device)[..., :k]
+              for k in (gh, gw))
     rh.view(b, h, gh, gw, gh).copy_(torch.einsum("bhywc,ykc->bhywk", grid, table_h.to(q.dtype)))
     rw.view(b, h, gh, gw, gw).copy_(torch.einsum("bhywc,wkc->bhywk", grid, table_w.to(q.dtype)))
     return RelPos(rh, rw, gw)

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import observability
-from ._build import CAPTURE, Kernel, forward_only, load, ptr, stream_handle
+from ._build import CAPTURE, Kernel, forward_only, ptr, stream_handle
 
 _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -33,10 +33,12 @@ _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-# K1's relative-position arguments (rh, rw, kh, kw), appended after its
-# others and before the stream, which stays last (pipeline/graphs.py): the
-# benchmark's readers take the others by position
-_REL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+# K1's relative-position arguments (rh, rw, kh, kw, then the terms' row
+# strides), appended after its others and before the stream, which stays last
+# (pipeline/graphs.py): the benchmark's readers take the others, and rh, rw,
+# kh, kw, by position
+_REL_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int]
 RH_ARG = len(_ARGS) - 1          # the position of rh in a K1 launch
 
 
@@ -66,8 +68,10 @@ PLAIN_BLOCK_ELEMS = 1 << 28
 
 class RelPos(NamedTuple):
     """Decomposed relative-position terms over a key grid of ``kw`` columns
-    (keys row-major): ``rh`` (B*H, Lq, kh) and ``rw`` (B*H, Lq, kw), fp32 and
-    contiguous; key k adds ``rh[q, k // kw] + rw[q, k % kw]`` to q's score."""
+    (keys row-major): ``rh`` (B*H, Lq, kh) and ``rw`` (B*H, Lq, kw), in q's
+    dtype, with a contiguous last dim (rows may be padded, as
+    ``ops/attention.relpos_terms`` pads them for K1's TMA loads); key k adds
+    ``rh[q, k // kw] + rw[q, k % kw]`` to q's score."""
     rh: torch.Tensor
     rw: torch.Tensor
     kw: int
@@ -157,18 +161,27 @@ def flash_attention(q, k, v, *, scale: float, bias=None, rel: RelPos | None = No
 
 
 @functools.cache
-def relpos_fits(kw: int) -> bool:
-    """Whether K1 takes a key grid of ``kw`` columns in this key order, as the
-    built library says (csrc/flash_attention.cu ``rel_fits``: kw even and at
-    least 8, and Rw's rows within shared memory, kw <= 392).  On the card
-    only: it builds or loads K1's library."""
-    return bool(load(K1.library).sdm_relpos_fits(int(kw)))
+def _exact_in_bf16(x: float) -> bool:
+    return torch.tensor(x).bfloat16().item() == x
+
+
+def tma_rows(t):
+    """Terms (B*H, Lq, n) as K1's TMA loads read them: a contiguous last dim,
+    a row stride of a multiple of 8 values (16 bytes), rows packed, a 16-byte
+    aligned start.  ``t`` itself where it is so (``relpos_terms`` writes them
+    so), else a copy with rows padded to a multiple of 8."""
+    bh, lq, n = t.shape
+    ld = t.stride(1)
+    if t.stride(2) == 1 and ld >= n and ld % 8 == 0 and t.stride(0) == lq * ld \
+            and t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty((bh, lq, -(-n // 8) * 8), dtype=t.dtype, device=t.device)[..., :n]
+    return out.copy_(t)
 
 
 def _relpos(q, k, v, scale, bias, rel):
-    """K1's relative-position mode.  A key grid K1 does not take row-major
-    goes in column-major (K and V copied in that order, the two terms
-    swapped): the softmax does not depend on the order of the keys."""
+    """K1's relative-position mode, on any key grid: its 8 x 16 key tiles
+    mask what lies past the grid's edge (csrc flash_fwd_relpos_sm90)."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     if bias is not None:
@@ -177,23 +190,23 @@ def _relpos(q, k, v, scale, bias, rel):
     if q.dtype != torch.bfloat16 or d != 64:
         raise ValueError(f"flash_attention: the relative-position mode runs bf16 at "
                          f"d = 64, not {q.dtype} at d = {d}")
+    if not (scale > 0 and _exact_in_bf16(1.0 / scale)):
+        raise ValueError(f"flash_attention: the relative-position mode needs 1 / scale "
+                         f"exact in bf16 (its one-hot carries it), not scale {scale}")
     kw = rel.kw
     kh = lk // kw
     if kh * kw != lk:
         raise ValueError(f"flash_attention: {lk} keys are no grid of {kw} columns")
     for name, t, n in (("rh", rel.rh, kh), ("rw", rel.rw, kw)):
-        if t.shape != (b * h, lq, n) or t.dtype != torch.float32 \
-                or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be a contiguous ({b * h}, "
-                             f"{lq}, {n}) fp32 tensor on q's device")
-    if not relpos_fits(kw):
-        if not relpos_fits(kh):
-            raise ValueError(f"flash_attention: no kernel for a {kh} x {kw} key grid")
-        k, v = (t.reshape(b, h, kh, kw, d).transpose(2, 3).reshape(b, h, lk, d) for t in (k, v))
-        rel = RelPos(rel.rw, rel.rh, kh)
+        if t.shape != (b * h, lq, n) or t.dtype != torch.bfloat16 \
+                or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} must be a ({b * h}, {lq}, {n}) bf16 "
+                             f"tensor with a contiguous last dim on q's device, not "
+                             f"{tuple(t.shape)} {t.dtype}: K1 takes the terms as "
+                             f"relpos_terms makes them and rounds none")
     return forward_only(K1.name, lambda q, k, v, rh, rw: _launch(K1, q, k, v, None, scale,
-                                                                 RelPos(rh, rw, rel.kw)),
-                        q, k, v, rel.rh, rel.rw)
+                                                                 RelPos(rh, rw, kw)),
+                        q, k, v, tma_rows(rel.rh), tma_rows(rel.rw))
 
 
 def _launch(kernel, q, k, v, bias, scale, rel=None):
@@ -208,7 +221,8 @@ def _launch(kernel, q, k, v, bias, scale, rel=None):
             ptr(out), strides(q), strides(k), strides(v), strides(out),
             0 if bias is None else bias.stride(0), b, h, lq, lk, float(scale)]
     if kernel is K1:
-        args += ([ptr(None), ptr(None), 0, 0] if rel is None else
-                 [ptr(rel.rh), ptr(rel.rw), rel.rh.shape[-1], rel.kw])
+        args += ([ptr(None), ptr(None), 0, 0, 0, 0] if rel is None else
+                 [ptr(rel.rh), ptr(rel.rw), rel.rh.shape[-1], rel.kw,
+                  rel.rh.stride(1), rel.rw.stride(1)])
     kernel.launch(*args, stream_handle(q.device))
     return out

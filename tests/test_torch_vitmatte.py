@@ -28,7 +28,7 @@ from sdmatte_tpu_torch.configs import ViTMatteConfig
 from sdmatte_tpu_torch.core.dtypes import BF16, FP32
 from sdmatte_tpu_torch.models.vitmatte import ViTMatte
 from sdmatte_tpu_torch.ops.flash_attention import (PLAIN_BLOCK_ELEMS, RelPos, attention_plain,
-                                                   flash_attention, relpos_fits)
+                                                   flash_attention, tma_rows)
 from sdmatte_tpu_torch.pipeline.vitmatte import ViTMatteOptions, ViTMattePipeline
 from sdmatte_tpu_torch.utils.observability import METRICS
 
@@ -236,9 +236,9 @@ def test_relpos_plain_matches_a_materialised_bias(monkeypatch, block, grid):
 
 @pytest.mark.parametrize("grid", [(6, 8), (15, 20), (10, 420), (4, 4)])
 def test_relpos_key_order_does_not_change_the_attention(grid):
-    """The wrapper's column-major form of a grid K1 does not take row-major
-    (K and V in column order, the terms swapped, kw the grid's height)
-    computes the same attention."""
+    """The grid transposed (K and V in column order, the terms swapped, kw
+    the grid's height) gives the same attention: the plain version reads
+    each term at its key's own row and column."""
     b, h, d = 1, 2, 16
     kh, kw = grid
     n = kh * kw
@@ -253,60 +253,130 @@ def test_relpos_key_order_does_not_change_the_attention(grid):
                                atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kw,fits", [(14, True), (190, True), (252, True), (392, True),
-                                     (394, False), (420, False), (6, False), (15, False)])
-def test_relpos_key_grids_the_kernel_takes(cuda, kw, fits):
-    """kw even and >= 8, Rw within shared memory (csrc rel_fits, which the
-    built library answers): a 12 MP photo's grids (190, 252) and the 14 x 14
-    windows go row-major."""
-    assert relpos_fits(kw) is fits
+# K1's relative-position mode, replayed on the CPU: 2-D key tiles of the grid,
+# the terms folded into the QK product (csrc flash_fwd_relpos_sm90).  A key
+# tile is REL_TILE grid rows x grid columns (csrc rel::kRows, rel::kCols), and
+# a term lane past the grid carries REL_MASK (csrc rel::kMaskBf16, -2^100,
+# finite in bf16); the cuda cases below hold the kernel itself to the plain
+# version.
+REL_TILE = (8, 16)
+REL_MASK = -2.0 ** 100
+GRIDS = [(190, 252), (252, 190), (14, 14), (15, 20), (17, 30), (6, 6)]
 
 
-@pytest.mark.parametrize("kw", [8, 14, 20, 190, 252])
-def test_relpos_tile_walk(kw):
-    """The kernel's walk over a tile's keys (csrc fa3_softmax_rel): one
-    division at the tile's start, then 8 keys on per step with at most one
-    row end, lands on each key's (row - tile's first row, column), and the
-    rows stay within the staged ring (127 / kw + 2)."""
-    nr = 127 // kw + 2
-    for k0 in range(0, 4 * 128 * kw, 128):
-        for tig in range(4):
-            key = k0 + 2 * tig
-            r, c = key // kw, key % kw
-            r -= k0 // kw
-            for jj in range(16):
-                if jj:
-                    c += 8
-                    if c >= kw:
-                        c, r = c - kw, r + 1
-                key = k0 + 8 * jj + 2 * tig
-                assert (r, c) == (key // kw - k0 // kw, key % kw)
-                assert r < nr and c + 1 < kw        # the pair shares its row
+def grid_tiles(kh, kw):
+    """K1's key tiles over a kh x kw grid in its order (row blocks outside):
+    (tiles, 128) keys, slot t = 16 r + c holding grid row r0 + r, column
+    c0 + c, and -1 where that lies past the grid (TMA zero-fills K and V)."""
+    rows, cols = REL_TILE
+    t = torch.arange(rows * cols)
+    out = []
+    for r0 in range(0, kh, rows):
+        for c0 in range(0, kw, cols):
+            gr, gc = r0 + t // cols, c0 + t % cols
+            out.append(torch.where((gr < kh) & (gc < kw), gr * kw + gc, -1))
+    return torch.stack(out)
 
 
-@pytest.mark.parametrize("kw", [8, 14, 190, 252, 392])
-def test_relpos_rw_staging_walk(kw):
-    """The consumers' walk over their warpgroup's 64 Rw rows (csrc fa3_fwd,
-    mode 2): thread tw takes pairs tw, tw + 128, ... in batches, stepping
-    (row, column) by (128 // kw2, 128 % kw2) with at most one carry, and
-    lands on each pair's divmod; every pair is taken once."""
-    kw2, batch = kw // 2, 8
-    n, di, dc = 64 * kw2, 128 // kw2, 128 % kw2
-    seen = []
-    for tw in range(128):
-        i0, c0 = divmod(tw, kw2)
-        for e0 in range(tw, n, 128 * batch):
-            i, c2 = i0, c0
-            for t in range(batch):
-                if e0 + 128 * t < n:
-                    assert (i, c2) == divmod(e0 + 128 * t, kw2)
-                    seen.append(e0 + 128 * t)
-                i, c2 = i + di, c2 + dc
-                if c2 >= kw2:
-                    i, c2 = i + 1, c2 - kw2
-            i0, c0 = i, c2
-    assert sorted(seen) == list(range(n))
+def one_hot(scale):
+    """The kernel's B (128 keys x 32 lanes): key t = 16 r + c holds 1 / scale
+    at lanes c and 16 + r."""
+    rows, cols = REL_TILE
+    t = torch.arange(rows * cols)
+    b = torch.zeros(rows * cols, 32)
+    b[t, t % cols] = 1 / scale
+    b[t, 16 + t // cols] = 1 / scale
+    return b
+
+
+def folded_scores(q, k, rh, rw, kh, kw, scale):
+    """Each tile's scores as K1 forms them, [q | A] [k_tile | B]^T * scale,
+    A = [Rw of the tile's 16 columns | Rh of its 8 rows | 0 x 8] with REL_MASK
+    in the lanes past the grid: (queries, tiles * 128) in the tiles' order."""
+    rows, cols = REL_TILE
+    b = one_hot(scale)
+    keys = grid_tiles(kh, kw)
+    out = []
+    for i, (r0, c0) in enumerate((r0, c0) for r0 in range(0, kh, rows)
+                                 for c0 in range(0, kw, cols)):
+        c, r = c0 + torch.arange(cols), r0 + torch.arange(rows)
+        a = torch.cat([torch.where(c < kw, rw[:, c.clamp(max=kw - 1)], REL_MASK),
+                       torch.where(r < kh, rh[:, r.clamp(max=kh - 1)], REL_MASK),
+                       torch.zeros(len(q), 8)], 1)
+        kt = torch.where(keys[i, :, None] >= 0, k[keys[i].clamp(min=0)], 0.0)
+        out.append(torch.cat([q, a], 1) @ torch.cat([kt, b], 1).T * scale)
+    return torch.cat(out, 1)
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_relpos_grid_tiles_cover_every_key_once(grid):
+    """8 x 16 tiles cover each key of the grid once, pad a 12 MP photo's grid
+    (47,880 keys) to 49,152 either way round and a 14 x 14 window to 256, and
+    every tile's first slot is a key of the grid (a row's running max is
+    finite from the first tile on)."""
+    kh, kw = grid
+    keys = grid_tiles(kh, kw)
+    assert torch.equal(keys[keys >= 0].sort().values, torch.arange(kh * kw))
+    assert keys.numel() == 128 * -(-kh // 8) * -(-kw // 16)
+    assert keys.numel() == {(190, 252): 49152, (252, 190): 49152, (14, 14): 256}.get(
+        grid, keys.numel())
+    assert bool((keys[:, 0] >= 0).all())
+
+
+@pytest.mark.parametrize("size", [1.0, 30.0])
+@pytest.mark.parametrize("grid", GRIDS)
+def test_relpos_folded_product_is_the_biased_score(grid, size):
+    """Per tile, [q | A] [k | B]^T * scale equals scale * q.k + Rh + Rw in
+    fp32 at every key of the grid, and the mask leaves padded slots softmax
+    weight 0 (terms of magnitude ~30 included), so the softmax over the
+    tiles is the softmax over the grid."""
+    kh, kw = grid
+    d, scale, nq = 64, 64 ** -0.5, 5
+    g = torch.Generator().manual_seed(kh * kw)
+    q, k = torch.randn(nq, d, generator=g), torch.randn(kh * kw, d, generator=g)
+    rh, rw = ((size * torch.randn(nq, n, generator=g)).bfloat16().float() for n in (kh, kw))
+    got = folded_scores(q, k, rh, rw, kh, kw, scale)
+    keys = grid_tiles(kh, kw).flatten()
+    real = keys >= 0
+    key = torch.arange(kh * kw)
+    want = scale * q @ k.T + rh[:, key // kw] + rw[:, key % kw]
+    torch.testing.assert_close(got[:, real], want[:, keys[real]], rtol=1e-5, atol=1e-4)
+    assert float(got[:, ~real].max()) <= REL_MASK
+    p = torch.softmax(got, -1)
+    assert float(p[:, ~real].abs().max()) == 0.0
+    torch.testing.assert_close(p[:, real], torch.softmax(want, -1)[:, keys[real]],
+                               rtol=1e-5, atol=1e-7)
+
+
+def test_relpos_one_hot_words_cover_the_tile():
+    """The kernel's loop over B's 4096 words (csrc flash_fwd_relpos_sm90):
+    word w is row w // 32 and physical 16-byte chunk (w // 4) % 8 of the
+    128-byte-swizzled tile, logical chunk ((w // 4) % 8) ^ (row % 8); each
+    (row, lane) is written once and the tile reads back as the one-hot."""
+    inv = 8.0
+    tile = torch.full((128, 64), float("nan"))
+    for w in range(128 * 128 // 4):
+        t = w >> 5
+        j = ((((w >> 2) & 7) ^ (t & 7)) << 3) + (w & 3) * 2
+        c, r = t % 16, 16 + t // 16
+        for lane in (j, j + 1):
+            assert tile[t, lane].isnan()
+            tile[t, lane] = inv if lane in (c, r) else 0.0
+    assert torch.equal(tile[:, :32], one_hot(1 / inv))
+    assert torch.equal(tile[:, 32:], torch.zeros(128, 32))
+
+
+def test_relpos_terms_come_in_tma_rows():
+    """relpos_terms writes rows padded to 8 values, which K1's TMA loads take
+    as they are; terms with another row stride are copied into such rows."""
+    q = torch.randn(1, 2, 14 * 15, 16)
+    rel = attention_mod.relpos_terms(q, torch.randn(14, 14, 16), torch.randn(15, 15, 16))
+    for t, n in ((rel.rh, 14), (rel.rw, 15)):
+        assert t.stride() == (14 * 15 * 16, 16, 1) and t.shape[-1] == n
+        assert tma_rows(t) is t
+    plain = torch.randn(2, 210, 15)
+    got = tma_rows(plain)
+    assert got.stride() == (210 * 16, 16, 1) and torch.equal(got, plain)
 
 
 def test_launches_a_matte_at_the_published_config(monkeypatch):
@@ -350,28 +420,48 @@ def _bar(got, want):
     return err, bar
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,grid", [((1, 12), (190, 252)), ((1, 12), (252, 190)),
-                                     ((252, 12), (14, 14)), ((2, 3), (15, 20)),
-                                     ((1, 2), (10, 420))])
-def test_k1_relpos_matches_plain(cuda, bh, grid):
-    """The main path's shapes (a 12 MP photo's global grid both ways, a
-    windowed block's 252 windows) and two ragged ones (a grid wider than
-    Rw's room goes column-major), on q, k, v sliced from one qkv tensor as
-    the model's are."""
-    b, h = bh
-    n, d = grid[0] * grid[1], 64
-    g = torch.Generator(device=cuda).manual_seed(11)
+def relpos_case(cuda, b, h, grid, size=1.0, seed=11):
+    """q, k, v sliced from one (B, L, 3, H, 64) bf16 tensor as the model's
+    are, and bf16 terms as relpos_terms makes them, from tables scaled so
+    that the terms' magnitude is about ``size`` times q's."""
+    kh, kw = grid
+    n, d = kh * kw, 64
+    g = torch.Generator(device=cuda).manual_seed(seed)
     qkv = torch.randn(b, n, 3, h, d, generator=g, device=cuda).bfloat16()
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    rel = RelPos(torch.randn(b * h, n, grid[0], generator=g, device=cuda),
-                 torch.randn(b * h, n, grid[1], generator=g, device=cuda), grid[1])
+    th, tw = (size / 8 * torch.randn(m, m, d, generator=g, device=cuda) for m in (kh, kw))
+    return q, k, v, attention_mod.relpos_terms(q, th, tw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,grid,size", [((1, 12), (190, 252), 1.0), ((1, 12), (252, 190), 1.0),
+                                          ((252, 12), (14, 14), 1.0), ((2, 3), (15, 20), 1.0),
+                                          ((1, 2), (10, 420), 1.0), ((2, 3), (17, 30), 1.0),
+                                          ((1, 12), (190, 252), 30.0), ((2, 3), (40, 6), 1.0),
+                                          ((4, 3), (6, 6), 1.0)])
+def test_k1_relpos_matches_plain(cuda, bh, grid, size):
+    """The main path's shapes (a 12 MP photo's global grid both ways, a
+    windowed block's 252 windows), ragged grids (17 x 30 at both edges of
+    the 8 x 16 tiles), terms of magnitude ~30 against the mask's headroom,
+    and grids narrower and shorter than one tile (40 x 6, 6 x 6: a term box
+    past the grid whole); on bf16 terms as relpos_terms makes them."""
+    b, h = bh
+    q, k, v, rel = relpos_case(cuda, b, h, grid, size)
+    assert rel.rh.dtype == torch.bfloat16
     before = METRICS.counters.get("attention.relpos_launches", 0)
-    got = flash_attention(q, k, v, scale=d ** -0.5, rel=rel)
+    got = flash_attention(q, k, v, scale=64 ** -0.5, rel=rel)
     torch.cuda.synchronize()
     assert METRICS.counters.get("attention.relpos_launches", 0) == before + 1
-    err, bar = _bar(got, attention_plain(q, k, v, scale=d ** -0.5, rel=rel))
-    print(f"relpos {b}x{h} grid {grid}: max err {err:.3e}, bar {bar:.3e}")
+    err, bar = _bar(got, attention_plain(q, k, v, scale=64 ** -0.5, rel=rel))
+    print(f"relpos {b}x{h} grid {grid} terms ~{size}: max err {err:.3e}, bar {bar:.3e}")
+
+
+@pytest.mark.cuda
+def test_k1_relpos_refuses_fp32_terms(cuda):
+    """fp32 terms raise on the card rather than being rounded to bf16."""
+    q, k, v, rel = relpos_case(cuda, 1, 2, (15, 20))
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q, k, v, scale=64 ** -0.5, rel=RelPos(rel.rh.float(), rel.rw.float(), 20))
 
 
 @pytest.mark.cuda
