@@ -1820,7 +1820,9 @@ class MetaPaths(EntryPoints):
         load_sdmatte_checkpoint(model, path)
         model.eval()
         img, tri = parity_pack.golden_inputs(512)
-        ref = self.plain_alpha(lambda: parity_pack.golden_dump(model, img, tri, impl="plain"))
+        from sdmatte_tpu_torch.ops.dispatch import implementation
+        with implementation("plain"):
+            ref = self.plain_alpha(lambda: parity_pack.golden_dump(model, img, tri))
         got = np.load(golden)
         rel = {k: float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max()) for k in ref}
         mae = float(np.abs(got["alpha"] - ref["alpha"]).mean())
@@ -2084,6 +2086,7 @@ class Training(EntryPoints):
         torch = self.torch
         from sdmatte_tpu_torch.core.dtypes import BF16
         from sdmatte_tpu_torch.ops import quant
+        from sdmatte_tpu_torch.ops.dispatch import implementation
         from sdmatte_tpu_torch.parallel.video import matte_video
         model = quant.stage_(self.model(), device=self.dev, dtype=torch.bfloat16).eval()
         frames, tris = self.clip()
@@ -2111,7 +2114,8 @@ class Training(EntryPoints):
             self.expect(f"(e) frame {i} alone, T = 1", self.predicted(k1=32, k2=2, k3=11))
             alone.append(float((alpha[i] - a[0]).abs().mean()))
             self.zero_counts()
-            p = matte_video(model, frames[i:i + 1], tris[i:i + 1], policy=BF16, impl="plain")
+            with implementation("plain"):
+                p = matte_video(model, frames[i:i + 1], tris[i:i + 1], policy=BF16)
             torch.cuda.synchronize()
             if any(k.launches for k in self.kernels):
                 raise AssertionError("(e) the plain run launched a hand kernel")

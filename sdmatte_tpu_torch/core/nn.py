@@ -6,9 +6,8 @@ the JAX functions take a param dict, and a ``Policy``.  Activations are
 NCHW tensors; on the card the model keeps them in ``torch.channels_last``,
 which is the NHWC memory order the 3x3 conv kernel reads.
 
-``impl`` selects the implementation of the hand-kernel sites: "auto" takes
-the kernel for a CUDA tensor and the plain version for a CPU one; "plain"
-takes the plain version on any device (for checking the kernels).
+The hand-kernel sites call the kernels' entry points, which choose between
+a kernel and its plain version themselves (``ops/dispatch.plain_here``).
 
 Weights are read through :func:`kernel_of`, which dequantizes int8 storage
 (``weight_i8`` + ``weight_s``, ops/quant.compress_tree_int8) at its use; a
@@ -18,13 +17,10 @@ takes the int8 conv before the dispatch table is consulted.
 
 from __future__ import annotations
 
-import time
-
 import torch
 import torch.nn.functional as tF
 from torch import nn
 
-from ..utils import observability
 from .dtypes import FP32, Policy
 
 
@@ -32,24 +28,13 @@ def _bias(p: nn.Module, dtype: torch.dtype):
     return None if p.bias is None else p.bias.to(dtype)
 
 
-def _dequantize(p: nn.Module, dtype: torch.dtype) -> torch.Tensor:
-    w = p.weight_i8
-    return (w.float() * p.weight_s.reshape(-1, *([1] * (w.ndim - 1)))).to(dtype)
-
-
 def kernel_of(p: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     """The layer's weight in ``dtype``; int8 storage is dequantized here, as
     ``w_i8.float() * w_s`` in fp32 per output channel, so the fp form is a
-    temporary of this use while the resident copy stays int8.  While the
-    span recorder is on, each dequantization is a ``quant.dequant`` span
-    (the host time int8 storage costs a matte)."""
+    temporary of this use while the resident copy stays int8."""
     if "weight_i8" in p._buffers:
-        if observability.ON:    # stamped by hand: ~350 a matte, so the lightest span
-            t0 = time.time_ns()
-            w = _dequantize(p, dtype)
-            observability.record("quant.dequant", t0, time.time_ns())
-            return w
-        return _dequantize(p, dtype)
+        w = p.weight_i8
+        return (w.float() * p.weight_s.reshape(-1, *([1] * (w.ndim - 1)))).to(dtype)
     return p.weight.to(dtype)
 
 
@@ -64,7 +49,7 @@ def linear(p: nn.Linear, x: torch.Tensor, policy: Policy = FP32) -> torch.Tensor
 
 
 def conv2d(p: nn.Conv2d, x: torch.Tensor, *, stride: int = 1, padding=1,
-           policy: Policy = FP32, impl: str = "auto") -> torch.Tensor:
+           policy: Policy = FP32) -> torch.Tensor:
     """3x3/1x1 conv.  ``padding`` is an int or ((top, bottom), (left, right));
     the VAE encoder's downsample pads (0, 1), (0, 1).  A conv with int8
     compute fields takes the int8 conv (ops/quant.conv2d_int8, K4 on the
@@ -75,7 +60,7 @@ def conv2d(p: nn.Conv2d, x: torch.Tensor, *, stride: int = 1, padding=1,
     if "weight_q" in p._buffers:
         from ..ops.quant import conv2d_int8
         return conv2d_int8(x, p.weight_q, p.weight_scale, p.bias, stride=stride,
-                           padding=padding, out_dtype=cd, impl=impl)
+                           padding=padding, out_dtype=cd)
     from ..ops.conv3x3 import pads_of
     shape = weight_shape(p)
     pad = pads_of(padding)
@@ -83,7 +68,7 @@ def conv2d(p: nn.Conv2d, x: torch.Tensor, *, stride: int = 1, padding=1,
         from ..ops.dispatch import conv3x3_route
         b, _, h, wd = x.shape
         if conv3x3_route(b, h, wd, shape[1], shape[0], compute_dtype=cd):
-            return _conv3x3(p, x, policy=policy, impl=impl)
+            return _conv3x3(p, x, policy=policy)
     x = policy.cast_compute(x)
     w = kernel_of(p, cd)
     if pad[0][0] == pad[0][1] and pad[1][0] == pad[1][1]:
@@ -104,22 +89,18 @@ def conv2d_affine(p: nn.Conv2d, x: torch.Tensor, scale: torch.Tensor, shift: tor
     return tF.conv2d(policy.cast_compute(x), w.to(cd), b.to(cd), stride=stride, padding=padding)
 
 
-def _conv3x3(p: nn.Conv2d, x, *, policy: Policy, impl: str, affine=None,
-             residual=None):
-    from ..ops.conv3x3 import conv3x3, conv3x3_plain
-    fn = conv3x3_plain if impl == "plain" else conv3x3
+def _conv3x3(p: nn.Conv2d, x, *, policy: Policy, affine=None, residual=None):
+    from ..ops.conv3x3 import conv3x3
     cd = policy.compute_dtype
     res = None if residual is None else policy.cast_compute(residual)
-    return fn(policy.cast_compute(x), kernel_of(p, cd), p.bias, affine=affine,
-              residual=res)
+    return conv3x3(policy.cast_compute(x), kernel_of(p, cd), p.bias, affine=affine, residual=res)
 
 
-def upsample2x_conv(p: nn.Conv2d, x: torch.Tensor, *, policy: Policy = FP32,
-                    impl: str = "auto") -> torch.Tensor:
+def upsample2x_conv(p: nn.Conv2d, x: torch.Tensor, *, policy: Policy = FP32) -> torch.Tensor:
     """diffusers ``Upsample2D``: nearest x2, then the 3x3 conv (the JAX
     package's default ``base`` form)."""
     u = tF.interpolate(x, scale_factor=2.0, mode="nearest")
-    return conv2d(p, u, policy=policy, impl=impl)
+    return conv2d(p, u, policy=policy)
 
 
 def group_norm_stats(p: nn.GroupNorm, x: torch.Tensor):
@@ -164,8 +145,7 @@ def gn_silu(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def gn_silu_conv2d(p_norm: nn.GroupNorm, p_conv: nn.Conv2d, x: torch.Tensor, *,
-                   policy: Policy = FP32, residual=None,
-                   impl: str = "auto") -> torch.Tensor:
+                   policy: Policy = FP32, residual=None) -> torch.Tensor:
     """conv(silu(GroupNorm(x))) [+ residual], the resnet pattern.  Where the
     dispatch table says so, the norm's apply pass and the SiLU ride the 3x3
     conv kernel's prologue and the residual its epilogue; elsewhere the
@@ -180,12 +160,11 @@ def gn_silu_conv2d(p_norm: nn.GroupNorm, p_conv: nn.Conv2d, x: torch.Tensor, *,
         if route is not None and route.fuse_gn:
             affine = group_norm_stats(p_norm, x)
             res = residual if route.fuse_residual else None
-            y = _conv3x3(p_conv, x, policy=policy, impl=impl, affine=affine,
-                         residual=res)
+            y = _conv3x3(p_conv, x, policy=policy, affine=affine, residual=res)
             if residual is not None and res is None:
                 y = y + residual.to(y.dtype)
             return y
-    y = conv2d(p_conv, gn_silu(p_norm, x), policy=policy, impl=impl)
+    y = conv2d(p_conv, gn_silu(p_norm, x), policy=policy)
     return y if residual is None else y + residual.to(y.dtype)
 
 

@@ -22,9 +22,10 @@ Several cards, data-parallel (each process its slice of --batch):
 
 It runs on the card unless --cpu, and exits with an error when it finds
 none.  Training runs the plain versions of the kernel sites
-(``impl="plain"``): no hand kernel has a backward.  The FP32 policy gets
-torch's precision defaults, which this script does not change: cuDNN convs
-in TF32, cuBLAS matmuls in full fp32; it prints both.
+(parallel/train.matting_loss enters ``ops/dispatch.implementation("plain")``):
+no hand kernel has a backward.  The FP32 policy gets torch's precision
+defaults, which this script does not change: cuDNN convs in TF32, cuBLAS
+matmuls in full fp32; it prints both.
 """
 
 from __future__ import annotations

@@ -31,7 +31,6 @@ from ..configs import AUX_INPUT_COORDS, SDMatteConfig
 from ..core.dtypes import FP32, Policy
 from ..core.embeddings import point_coords_padding, sinusoidal_embedding
 from ..core.imaging import resize_bilinear, resize_nearest
-from ..utils import observability
 from .clip import CLIPTextModel
 from .unet import MatteUNet
 from .vae import AutoencoderKL
@@ -88,8 +87,7 @@ class SDMatte(nn.Module):
         self.text_encoder = CLIPTextModel(cfg.clip)
 
     def forward(self, data: dict, *, aux_input_type: Optional[str] = None,
-                policy: Policy = FP32, impl: str = "auto",
-                vae_chunk: Optional[int] = None,
+                policy: Policy = FP32, vae_chunk: Optional[int] = None,
                 vae_encode_split: Optional[bool] = None,
                 speed_aux_half: bool = False, speed_rgb_half: bool = False,
                 speed_decode_half: bool = False,
@@ -131,7 +129,7 @@ class SDMatte(nn.Module):
         def enc(x):
             # the encoder runs in channels_last (NHWC memory, what K3 reads)
             x = x.contiguous(memory_format=torch.channels_last)
-            return self.vae.encode(x, policy=policy, impl=impl)
+            return self.vae.encode(x, policy=policy)
 
         split = vae_encode_split
         if split is None:
@@ -161,7 +159,7 @@ class SDMatte(nn.Module):
 
         aux_tokens = None
         if cfg.use_encoder_hidden_states:
-            aux_tokens = self.unet.aux_tokens(aux_latent, policy=policy, impl=impl)
+            aux_tokens = self.unet.aux_tokens(aux_latent, policy=policy)
         text_tokens = None
         if not all(cfg.unet.use_encoder_hidden_states_list):
             text_tokens = self.text_encoder(data["text_ids"], policy=policy)
@@ -172,23 +170,21 @@ class SDMatte(nn.Module):
         cd = policy.compute_dtype
         want_features = cfg.use_dis_loss or return_intermediates
         sample = torch.cat([rgb_latent, aux_latent], dim=1).to(cd)
-        with observability.span("model.unet"):
-            out = self.unet(sample=sample, trans=trans,
-                            encoder_hidden_states=aux_tokens,
-                            encoder_hidden_states_2=text_tokens,
-                            coords_embed=coords_embed,
-                            attention_mask=attention_mask,
-                            encoder_attention_mask=enc_mask,
-                            policy=policy, impl=impl, return_features=want_features,
-                            remat=remat)
+        out = self.unet(sample=sample, trans=trans,
+                        encoder_hidden_states=aux_tokens,
+                        encoder_hidden_states_2=text_tokens,
+                        coords_embed=coords_embed,
+                        attention_mask=attention_mask,
+                        encoder_attention_mask=enc_mask,
+                        policy=policy, return_features=want_features,
+                        remat=remat)
         label_latent, feature_maps = out if want_features else (out, None)
 
         # -- decode + alpha head ------------------------------------------
         z = label_latent.to(cd) / torch.tensor(cfg.vae.scaling_factor, dtype=cd)
         if speed_decode_half:
             z = _resize(z, z.shape[2] // 2, z.shape[3] // 2, antialias=False)
-        decoded = _chunked(lambda zz: self.vae.decode(zz, policy=policy, impl=impl),
-                           z, vae_chunk)
+        decoded = _chunked(lambda zz: self.vae.decode(zz, policy=policy), z, vae_chunk)
         alpha = decoded.float().mean(dim=1, keepdim=True).clamp(-1.0, 1.0)
         alpha = (alpha + 1.0) * 0.5
         if return_intermediates:

@@ -24,9 +24,16 @@ from ..core import nn as F
 from ..core.dtypes import FP32, Policy
 from ..core.embeddings import sinusoidal_embedding
 from ..core.imaging import resize_nearest
-from ..ops.attention import attention
+from ..ops.dispatch import checkpoint_contexts
+from ..ops.flash_attention import flash_attention
 
 NEG_BIAS = -10000.0
+
+
+def _recomputed(fn, *args):
+    """``fn(*args)``, recomputed on the backward pass instead of kept, under
+    the forward's implementation (ops/dispatch.checkpoint_contexts)."""
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=checkpoint_contexts)
 
 
 class TimestepEmbedding(nn.Module):
@@ -49,8 +56,7 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, c, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
-    def forward(self, x, ctx, *, heads: int, bias, policy: Policy, impl: str,
-                residual: bool = False):
+    def forward(self, x, ctx, *, heads: int, bias, policy: Policy, residual: bool = False):
         """q from x, k/v from ctx, per-key bias (B, Lk); ``residual`` is
         diffusers' ``Attention.residual_connection``."""
         b, lq, c = x.shape
@@ -59,8 +65,7 @@ class Attention(nn.Module):
         q = F.linear(self.to_q, x, policy).view(b, lq, heads, d).transpose(1, 2)
         k = F.linear(self.to_k, ctx, policy).view(b, lk, heads, d).transpose(1, 2)
         v = F.linear(self.to_v, ctx, policy).view(b, lk, heads, d).transpose(1, 2)
-        o = attention(q.to(cd), k.to(cd), v.to(cd), scale=1.0 / math.sqrt(d),
-                      bias=bias, impl=impl)
+        o = flash_attention(q.to(cd), k.to(cd), v.to(cd), scale=1.0 / math.sqrt(d), bias=bias)
         out = F.linear(self.to_out[0], o.transpose(1, 2).reshape(b, lq, c), policy)
         return out + x.to(out.dtype) if residual else out
 
@@ -102,17 +107,16 @@ class Transformer2D(nn.Module):
         self.proj_out = nn.Linear(c, c)
         self.residual_attn1 = cfg.residual_connection and c == 320
 
-    def forward(self, x, ctx, *, heads: int, bias_self, bias_cross,
-                policy: Policy, impl: str):
+    def forward(self, x, ctx, *, heads: int, bias_self, bias_cross, policy: Policy):
         b, c, h, w = x.shape
         y = F.group_norm(self.norm, x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = F.linear(self.proj_in, y, policy).to(x.dtype)
         tb = self.transformer_blocks[0]
         n1 = F.layer_norm(tb.norm1, y)
         y = y + tb.attn1(n1, n1, heads=heads, bias=bias_self, policy=policy,
-                         impl=impl, residual=self.residual_attn1).to(y.dtype)
+                         residual=self.residual_attn1).to(y.dtype)
         y = y + tb.attn2(F.layer_norm(tb.norm2, y), ctx, heads=heads,
-                         bias=bias_cross, policy=policy, impl=impl).to(y.dtype)
+                         bias=bias_cross, policy=policy).to(y.dtype)
         y = y + tb.ff(F.layer_norm(tb.norm3, y), policy).to(y.dtype)
         y = F.linear(self.proj_out, y, policy).to(x.dtype)
         return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -129,13 +133,13 @@ class ResnetBlock(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x, emb, policy: Policy, impl: str):
-        h = F.conv2d(self.conv1, F.gn_silu(self.norm1, x), policy=policy, impl=impl)
+    def forward(self, x, emb, policy: Policy):
+        h = F.conv2d(self.conv1, F.gn_silu(self.norm1, x), policy=policy)
         t = F.linear(self.time_emb_proj, F.silu(emb), policy).to(h.dtype)
         h = h + t[:, :, None, None]
-        h = F.conv2d(self.conv2, F.gn_silu(self.norm2, h), policy=policy, impl=impl)
+        h = F.conv2d(self.conv2, F.gn_silu(self.norm2, h), policy=policy)
         if self.conv_shortcut is not None:
-            x = F.conv2d(self.conv_shortcut, x, padding=0, policy=policy, impl=impl)
+            x = F.conv2d(self.conv_shortcut, x, padding=0, policy=policy)
         return x + h
 
 
@@ -223,10 +227,10 @@ class MatteUNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, ch[0], cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
-    def aux_tokens(self, aux_latent, *, policy: Policy = FP32, impl: str = "auto"):
+    def aux_tokens(self, aux_latent, *, policy: Policy = FP32):
         """aux latent (B, 4, h, w) -> cross-attention context (B, h*w, C),
         tokens in HW-major order."""
-        t = F.conv2d(self.aux_conv_in, aux_latent, policy=policy, impl=impl)
+        t = F.conv2d(self.aux_conv_in, aux_latent, policy=policy)
         b, c, h, w = t.shape
         return t.permute(0, 2, 3, 1).reshape(b, h * w, c)
 
@@ -234,8 +238,7 @@ class MatteUNet(nn.Module):
                 encoder_hidden_states_2=None,
                 coords_embed: Optional[dict] = None, attention_mask=None,
                 encoder_attention_mask=None, policy: Policy = FP32,
-                impl: str = "auto", return_features: bool = False,
-                remat: bool = False):
+                return_features: bool = False, remat: bool = False):
         """One U-Net pass with ``timestep`` None (the matting path).
 
         sample (B, 8, h, w) rgb||aux latents; trans (B,) opacity label;
@@ -292,19 +295,16 @@ class MatteUNet(nn.Module):
         heads = list(cfg.attention_head_dim)
 
         def resnet(res, x):
-            if remat:
-                return checkpoint(res, x, emb, policy, impl, use_reentrant=False)
-            return res(x, emb, policy, impl)
+            return _recomputed(res, x, emb, policy) if remat else res(x, emb, policy)
 
         def transformer(t, x, stage, heads_i):
             bs, bc = stage_bias(stage, x.shape[2], x.shape[3])
 
             def run(x):
-                return t(x, ctxs[stage], heads=heads_i, bias_self=bs, bias_cross=bc,
-                         policy=policy, impl=impl)
-            return checkpoint(run, x, use_reentrant=False) if remat else run(x)
+                return t(x, ctxs[stage], heads=heads_i, bias_self=bs, bias_cross=bc, policy=policy)
+            return _recomputed(run, x) if remat else run(x)
 
-        x = F.conv2d(self.conv_in, sample, policy=policy, impl=impl)
+        x = F.conv2d(self.conv_in, sample, policy=policy)
         skips = [x]
         n = len(ch)
         for i, blk in enumerate(self.down_blocks):
@@ -314,7 +314,7 @@ class MatteUNet(nn.Module):
                     x = transformer(blk.attentions[j], x, 0, heads[i])
                 skips.append(x)
             if i < n - 1:
-                x = F.conv2d(blk.downsamplers[0].conv, x, stride=2, policy=policy, impl=impl)
+                x = F.conv2d(blk.downsamplers[0].conv, x, stride=2, policy=policy)
                 skips.append(x)
 
         features = [x]
@@ -335,11 +335,11 @@ class MatteUNet(nn.Module):
                 th, tw = skips[-1].shape[2:] if skips else (2 * x.shape[2], 2 * x.shape[3])
                 up = blk.upsamplers[0].conv
                 if (th, tw) == (2 * x.shape[2], 2 * x.shape[3]):
-                    x = F.upsample2x_conv(up, x, policy=policy, impl=impl)
+                    x = F.upsample2x_conv(up, x, policy=policy)
                 else:
-                    x = F.conv2d(up, resize_nearest(x, th, tw), policy=policy, impl=impl)
+                    x = F.conv2d(up, resize_nearest(x, th, tw), policy=policy)
 
         features.append(x)
         x = F.gn_silu(self.conv_norm_out, x)
-        out = F.conv2d(self.conv_out, x, policy=policy, impl=impl)
+        out = F.conv2d(self.conv_out, x, policy=policy)
         return (out, features) if return_features else out

@@ -20,7 +20,7 @@ from torch import nn
 from ..configs import VAEConfig
 from ..core import nn as F
 from ..core.dtypes import FP32, Policy
-from ..ops.attention import attention
+from ..ops.flash_attention import flash_attention
 
 
 class ResnetBlock(nn.Module):
@@ -33,13 +33,12 @@ class ResnetBlock(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x, policy: Policy, impl: str):
-        h = F.gn_silu_conv2d(self.norm1, self.conv1, x, policy=policy, impl=impl)
+    def forward(self, x, policy: Policy):
+        h = F.gn_silu_conv2d(self.norm1, self.conv1, x, policy=policy)
         res = x
         if self.conv_shortcut is not None:
-            res = F.conv2d(self.conv_shortcut, x, padding=0, policy=policy, impl=impl)
-        return F.gn_silu_conv2d(self.norm2, self.conv2, h, policy=policy,
-                                residual=res, impl=impl)
+            res = F.conv2d(self.conv_shortcut, x, padding=0, policy=policy)
+        return F.gn_silu_conv2d(self.norm2, self.conv2, h, policy=policy, residual=res)
 
 
 class AttentionBlock(nn.Module):
@@ -53,15 +52,14 @@ class AttentionBlock(nn.Module):
         self.to_v = nn.Linear(c, c)
         self.to_out = nn.ModuleList([nn.Linear(c, c)])
 
-    def forward(self, x, policy: Policy, impl: str):
+    def forward(self, x, policy: Policy):
         b, c, h, w = x.shape
         cd = policy.compute_dtype
         y = F.group_norm(self.group_norm, x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q = F.linear(self.to_q, y, policy).to(cd)
         k = F.linear(self.to_k, y, policy).to(cd)
         v = F.linear(self.to_v, y, policy).to(cd)
-        o = attention(q[:, None], k[:, None], v[:, None], scale=1.0 / math.sqrt(c),
-                      impl=impl)[:, 0]
+        o = flash_attention(q[:, None], k[:, None], v[:, None], scale=1.0 / math.sqrt(c))[:, 0]
         o = F.linear(self.to_out[0], o.reshape(b, h * w, c), policy).to(x.dtype)
         return x + o.reshape(b, h, w, c).permute(0, 3, 1, 2)
 
@@ -72,10 +70,10 @@ class MidBlock(nn.Module):
         self.resnets = nn.ModuleList([ResnetBlock(c, c, cfg), ResnetBlock(c, c, cfg)])
         self.attentions = nn.ModuleList([AttentionBlock(c, cfg)])
 
-    def forward(self, x, policy: Policy, impl: str):
-        x = self.resnets[0](x, policy, impl)
-        x = self.attentions[0](x, policy, impl)
-        return self.resnets[1](x, policy, impl)
+    def forward(self, x, policy: Policy):
+        x = self.resnets[0](x, policy)
+        x = self.attentions[0](x, policy)
+        return self.resnets[1](x, policy)
 
 
 class _Sampler(nn.Module):
@@ -138,40 +136,40 @@ class AutoencoderKL(nn.Module):
         self.quant_conv = nn.Conv2d(2 * lat, 2 * lat, 1)
         self.post_quant_conv = nn.Conv2d(lat, lat, 1)
 
-    def encode_moments(self, x, *, policy: Policy = FP32, impl: str = "auto"):
+    def encode_moments(self, x, *, policy: Policy = FP32):
         """(B, 3, S, S) image in [-1, 1] -> (mean, logvar), latent_channels each."""
         e = self.encoder
-        h = F.conv2d(e.conv_in, x, policy=policy, impl=impl)
+        h = F.conv2d(e.conv_in, x, policy=policy)
         n = len(e.down_blocks)
         for i, blk in enumerate(e.down_blocks):
             for res in blk.resnets:
-                h = res(h, policy, impl)
+                h = res(h, policy)
             if i < n - 1:
                 # stride-2 conv with (0, 1), (0, 1) padding (diffusers Downsample2D)
                 h = F.conv2d(blk.downsamplers[0].conv, h, stride=2,
-                             padding=((0, 1), (0, 1)), policy=policy, impl=impl)
-        h = e.mid_block(h, policy, impl)
+                             padding=((0, 1), (0, 1)), policy=policy)
+        h = e.mid_block(h, policy)
         h = F.gn_silu(e.conv_norm_out, h)
-        h = F.conv2d(e.conv_out, h, policy=policy, impl=impl)
-        moments = F.conv2d(self.quant_conv, h, padding=0, policy=policy, impl=impl)
+        h = F.conv2d(e.conv_out, h, policy=policy)
+        moments = F.conv2d(self.quant_conv, h, padding=0, policy=policy)
         return moments.chunk(2, dim=1)
 
-    def encode(self, x, *, policy: Policy = FP32, impl: str = "auto"):
+    def encode(self, x, *, policy: Policy = FP32):
         """Deterministic latent: mean * scaling_factor."""
-        mean, _ = self.encode_moments(x, policy=policy, impl=impl)
+        mean, _ = self.encode_moments(x, policy=policy)
         return mean * torch.tensor(self.cfg.scaling_factor, dtype=mean.dtype)
 
-    def decode(self, z, *, policy: Policy = FP32, impl: str = "auto"):
+    def decode(self, z, *, policy: Policy = FP32):
         """Latent (already divided by scaling_factor) -> image in [-1, 1]."""
         d = self.decoder
-        h = F.conv2d(self.post_quant_conv, z, padding=0, policy=policy, impl=impl)
-        h = F.conv2d(d.conv_in, h, policy=policy, impl=impl)
-        h = d.mid_block(h, policy, impl)
+        h = F.conv2d(self.post_quant_conv, z, padding=0, policy=policy)
+        h = F.conv2d(d.conv_in, h, policy=policy)
+        h = d.mid_block(h, policy)
         n = len(d.up_blocks)
         for i, blk in enumerate(d.up_blocks):
             for res in blk.resnets:
-                h = res(h, policy, impl)
+                h = res(h, policy)
             if i < n - 1:
-                h = F.upsample2x_conv(blk.upsamplers[0].conv, h, policy=policy, impl=impl)
+                h = F.upsample2x_conv(blk.upsamplers[0].conv, h, policy=policy)
         h = F.gn_silu(d.conv_norm_out, h)
-        return F.conv2d(d.conv_out, h, policy=policy, impl=impl)
+        return F.conv2d(d.conv_out, h, policy=policy)

@@ -45,7 +45,8 @@ from ..configs import ViTMatteConfig
 from ..core import nn as F
 from ..core import tables
 from ..core.dtypes import FP32, Policy
-from ..ops.attention import attention, relpos_terms
+from ..ops.attention import relpos_terms
+from ..ops.flash_attention import flash_attention
 from ..utils import observability
 
 
@@ -91,14 +92,14 @@ class Attention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(table_rows, d))
         self.rel_pos_w = nn.Parameter(torch.zeros(table_rows, d))
 
-    def forward(self, x, tab_h, tab_w, *, policy: Policy, impl: str):
+    def forward(self, x, tab_h, tab_w, *, policy: Policy):
         """x (B, gh, gw, C) -> (B, gh, gw, C); tab_h (gh, gh, d), tab_w (gw, gw, d)."""
         b, gh, gw, c = x.shape
         n, d = gh * gw, c // self.heads
         qkv = F.linear(self.qkv, x, policy).view(b, n, 3, self.heads, d)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         rel = relpos_terms(q, tab_h, tab_w)
-        o = attention(q, k, v, scale=d ** -0.5, rel=rel, impl=impl)
+        o = flash_attention(q, k, v, scale=d ** -0.5, rel=rel)
         return F.linear(self.proj, o.transpose(1, 2).reshape(b, gh, gw, c), policy)
 
 
@@ -131,13 +132,13 @@ class Bottleneck(nn.Module):
         self.conv3 = nn.Conv2d(m, c, 1, bias=False)
         self.norm3 = nn.LayerNorm(c, eps=eps)
 
-    def forward(self, x, *, policy: Policy, impl: str):
+    def forward(self, x, *, policy: Policy):
         """x (B, gh, gw, C) NHWC -> the same."""
-        y = F.conv2d(self.conv1, x.permute(0, 3, 1, 2), padding=0, policy=policy, impl=impl)
+        y = F.conv2d(self.conv1, x.permute(0, 3, 1, 2), padding=0, policy=policy)
         y = F.gelu(_channel_norm(self.norm1, y))
-        y = F.conv2d(self.conv2, y, padding=1, policy=policy, impl=impl)
+        y = F.conv2d(self.conv2, y, padding=1, policy=policy)
         y = F.gelu(_channel_norm(self.norm2, y))
-        y = F.conv2d(self.conv3, y, padding=0, policy=policy, impl=impl)
+        y = F.conv2d(self.conv3, y, padding=0, policy=policy)
         return x + _channel_norm(self.norm3, y).permute(0, 2, 3, 1)
 
 
@@ -171,19 +172,19 @@ class Layer(nn.Module):
         if index in cfg.residual_block_indices:
             self.residual = Bottleneck(cfg)
 
-    def forward(self, x, tab_h, tab_w, *, policy: Policy, impl: str):
+    def forward(self, x, tab_h, tab_w, *, policy: Policy):
         """x (B, gh, gw, C) fp32, the residual stream -> the same."""
         h = policy.cast_compute(F.layer_norm(self.norm1, x))
         if self.window:
             win, padded = window_partition(h, self.window)
-            a = self.attention(win, tab_h, tab_w, policy=policy, impl=impl)
+            a = self.attention(win, tab_h, tab_w, policy=policy)
             a = window_unpartition(a, self.window, padded, x.shape[1:3])
         else:
-            a = self.attention(h, tab_h, tab_w, policy=policy, impl=impl)
+            a = self.attention(h, tab_h, tab_w, policy=policy)
         x = x + a
         x = x + self.mlp(policy.cast_compute(F.layer_norm(self.norm2, x)), policy)
         if hasattr(self, "residual"):
-            x = self.residual(x, policy=policy, impl=impl)
+            x = self.residual(x, policy=policy)
         return x
 
 
@@ -306,16 +307,15 @@ class ViTMatte(nn.Module):
         observability.METRICS.count("vitmatte.tables_built")
         return got
 
-    def backbone_forward(self, x, *, policy: Policy = FP32, impl: str = "auto"):
+    def backbone_forward(self, x, *, policy: Policy = FP32):
         """x (B, 4, H, W) -> features (B, H/16, W/16, C) NHWC, fp32."""
         p = self.cfg.patch_size
         gh, gw = x.shape[2] // p, x.shape[3] // p
         tabs = self.position_tables(gh, gw, policy.compute_dtype)
-        t = F.conv2d(self.backbone.embeddings.projection, x, stride=p, padding=0,
-                     policy=policy, impl=impl)
+        t = F.conv2d(self.backbone.embeddings.projection, x, stride=p, padding=0, policy=policy)
         t = t.permute(0, 2, 3, 1) + tabs.absolute
         for layer, (tab_h, tab_w) in zip(self.backbone.encoder.layer, tabs.relative):
-            t = layer(t, tab_h, tab_w, policy=policy, impl=impl)
+            t = layer(t, tab_h, tab_w, policy=policy)
         return t
 
     def decoder_forward(self, features, x, *, policy: Policy = FP32):
@@ -334,8 +334,5 @@ class ViTMatte(nn.Module):
         f = F.conv2d(head[3], f, padding=0, policy=policy)
         return torch.sigmoid(f.float())
 
-    def forward(self, x, *, policy: Policy = FP32, impl: str = "auto"):
-        with observability.span("model.vit"):
-            features = self.backbone_forward(x, policy=policy, impl=impl)
-        with observability.span("model.vitmatte_decoder"):
-            return self.decoder_forward(features, x, policy=policy)
+    def forward(self, x, *, policy: Policy = FP32):
+        return self.decoder_forward(self.backbone_forward(x, policy=policy), x, policy=policy)

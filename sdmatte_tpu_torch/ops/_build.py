@@ -170,8 +170,8 @@ class _ForwardOnly(torch.autograd.Function):
     def backward(ctx, *grads):
         raise RuntimeError(
             f"{ctx.name} has no backward kernel: the port, like the JAX package, "
-            f"differentiates only the plain versions, so training runs with "
-            f"impl=\"plain\"")
+            f"differentiates only the plain versions, so training runs inside "
+            f"ops.dispatch.implementation(\"plain\")")
 
 
 def forward_only(name: str, launch: Callable, *tensors):

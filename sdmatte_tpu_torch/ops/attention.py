@@ -1,33 +1,19 @@
-"""Attention front end: one interface for every attention site
-(sdmatte_tpu/ops/attention.py).
+"""The attention sites' inputs (sdmatte_tpu/ops/attention.py).
 
-The bias is a per-key vector (B, Lk) broadcast over queries and heads, or
+Every attention site calls ``ops/flash_attention.flash_attention``, whose
+bias is a per-key vector (B, Lk) broadcast over queries and heads, or
 decomposed relative-position terms (``RelPos``: ViTMatte's blocks, made by
 :func:`relpos_terms`).  On a CUDA tensor every site takes a hand kernel (K1
 for d <= 128, K2 for d = 512): the JAX package's ``_FLASH_MIN_SEQ``
-threshold is a TPU launch-cost rule, so the port has none.  On a CPU tensor
-the plain version runs.
+threshold is a TPU launch-cost rule, so the port has none.  Where
+``ops/dispatch.plain_here`` says so the plain version runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import RelPos, attention_plain, flash_attention
-
-
-def attention(q, k, v, *, scale: float, bias=None, rel: RelPos | None = None,
-              impl: str = "auto"):
-    """q (B,H,Lq,D), k/v (B,H,Lk,D), bias (B,Lk) or None, rel or None ->
-    (B,H,Lq,D).
-
-    impl: "auto" (the kernel on the card, the plain version on the CPU) or
-    "plain" (the plain version everywhere, for checking the kernels)."""
-    if impl == "plain":
-        return attention_plain(q, k, v, scale=scale, bias=bias, rel=rel)
-    if impl != "auto":
-        raise ValueError(f"unknown attention impl {impl!r}")
-    return flash_attention(q, k, v, scale=scale, bias=bias, rel=rel)
+from .flash_attention import RelPos
 
 
 def relpos_terms(q, table_h, table_w) -> RelPos:

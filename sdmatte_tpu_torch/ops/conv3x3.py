@@ -14,7 +14,8 @@
 
 Both are bound by operations on the H100; the source notes say what the
 designs do about it.  :func:`conv3x3` and :func:`conv3x3_int8` take the plain
-version for a CPU tensor and launch the kernel for a CUDA tensor, or raise.
+version where ``ops/dispatch.plain_here`` says so and launch the kernel for a
+CUDA tensor, or raise.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as tF
 
 from ._build import Kernel, forward_only, ptr, stream_handle
+from .dispatch import plain_here
 
 K3 = Kernel("conv3x3", "conv3x3", "sdm_conv3x3",
             [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -75,7 +77,7 @@ def conv3x3(x, w, b=None, *, affine=None, residual=None):
     must be in ``torch.channels_last`` (NHWC memory) and the output is too;
     the weight is read as (Cout, 3, 3, Cin), which is free for a
     channels_last weight and one small copy otherwise."""
-    if x.device.type == "cpu":
+    if plain_here(x):
         return conv3x3_plain(x, w, b, affine=affine, residual=residual)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: no kernel for device {x.device}")
@@ -207,7 +209,7 @@ def conv3x3_int8(xq, wq, scale_vec, b=None, *, stride: int = 1, padding=1,
     any padding of 0-2 a side).  On the card xq must be in
     ``torch.channels_last`` and the output is too; the weight is read as
     (Cout, 3, 3, Cin), which is free for a channels_last weight."""
-    if xq.device.type == "cpu":
+    if plain_here(xq):
         return conv3x3_int8_plain(xq, wq, scale_vec, b, stride=stride,
                                   padding=padding, out_dtype=out_dtype)
     if xq.device.type != "cuda":

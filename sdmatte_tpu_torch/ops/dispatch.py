@@ -1,7 +1,13 @@
-"""Which 3x3 stride-1 convs take the conv kernel (sdmatte_tpu/ops/dispatch.py).
+"""Which implementation runs, and which 3x3 stride-1 convs take the conv
+kernel (sdmatte_tpu/ops/dispatch.py).
 
-For now the table is the JAX package's as its TPU pipeline runs it (inside
-``model_jit``): ``PALLAS_CONV_WINS`` with the ``PALLAS_CONV_WINS_SVMEM``
+Every hand-kernel entry point asks :func:`plain_here` before it launches: a
+CPU tensor takes the plain version, and so does any tensor inside
+``implementation("plain")``, the one switch that forces the plain versions
+on the card (to check the kernels, and to train: no kernel has a backward).
+
+The conv table is, for now, the JAX package's as its TPU pipeline runs it
+(inside ``model_jit``): ``PALLAS_CONV_WINS`` with the ``PALLAS_CONV_WINS_SVMEM``
 overlay applied, keeping each entry's gn / residual fusion flags.  Every one
 is a VAE-encoder shape at concat batch 2, and only under the bf16 policy.
 Every other conv is ``torch.nn.functional.conv2d``.  The table was measured
@@ -10,9 +16,40 @@ against XLA on a TPU; retuning it against cuDNN on the H100 is later work.
 
 from __future__ import annotations
 
+import contextlib
+from contextvars import ContextVar
 from typing import NamedTuple, Optional
 
 import torch
+
+IMPLEMENTATIONS = ("auto", "plain")
+_implementation: ContextVar[str] = ContextVar("implementation", default="auto")
+
+
+@contextlib.contextmanager
+def implementation(name: str):
+    """Inside: "plain" runs the plain versions on any device, "auto" the
+    kernels on the card.  Scopes nest and restore the outer setting on any
+    exit; a thread starts at "auto" whatever another thread has set."""
+    if name not in IMPLEMENTATIONS:
+        raise ValueError(f"implementation must be 'auto' or 'plain', got {name!r}")
+    token = _implementation.set(name)
+    try:
+        yield
+    finally:
+        _implementation.reset(token)
+
+
+def plain_here(t: torch.Tensor) -> bool:
+    """Whether an entry point takes the plain version for this tensor."""
+    return t.device.type == "cpu" or _implementation.get() == "plain"
+
+
+def checkpoint_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs under
+    the implementation of the forward it repeats, since a backward on the
+    card may run it on an autograd thread of its own."""
+    return contextlib.nullcontext(), implementation(_implementation.get())
 
 
 class Route(NamedTuple):

@@ -12,8 +12,9 @@ relative-position terms: the hand kernels and their plain version.
       fp32 the first design's template.
 
 Both are bound by operations on the H100; the source note says what the
-design does about it.  :func:`flash_attention` takes the plain version for a
-CPU tensor and launches a kernel for a CUDA tensor, or raises.
+design does about it.  :func:`flash_attention`, every attention site's entry
+point, takes the plain version where ``ops/dispatch.plain_here`` says so and
+launches a kernel for a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ..utils import observability
 from ._build import CAPTURE, Kernel, forward_only, ptr, stream_handle
+from .dispatch import plain_here
 
 _ARGS = [ctypes.c_int, ctypes.c_int,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -130,7 +132,7 @@ def flash_attention(q, k, v, *, scale: float, bias=None, rel: RelPos | None = No
     Any (batch, head, row) strides are taken as they are; the output of a
     kernel is a (B,H,Lq,D) view of a (B,Lq,H,D) tensor, so the caller's
     merge of the heads is free."""
-    if q.device.type == "cpu":
+    if plain_here(q):
         return attention_plain(q, k, v, scale=scale, bias=bias, rel=rel)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")

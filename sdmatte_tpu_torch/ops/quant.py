@@ -30,7 +30,7 @@ import copy
 import torch
 from torch import nn
 
-from .conv3x3 import conv3x3_int8, conv3x3_int8_plain
+from .conv3x3 import conv3x3_int8
 
 STORAGE_MIN_ELEMS = 1 << 16
 SCALE_NAMES = ("weight_scale", "weight_s")
@@ -77,15 +77,11 @@ def quantize_act_int8(x: torch.Tensor):
 
 
 def conv2d_int8(x, wq, w_scale, bias=None, *, stride: int = 1, padding=1,
-                out_dtype=torch.bfloat16, impl: str = "auto"):
+                out_dtype=torch.bfloat16):
     """Dynamic activation quantization -> int8 3x3 conv -> fp32 dequant by
-    ``s_x * w_scale`` (+ bias), written as out_dtype.  ``impl="plain"`` takes
-    the plain version on any device."""
+    ``s_x * w_scale`` (+ bias), written as out_dtype."""
     xq, s_x = quantize_act_int8(x)
     scale_vec = s_x * w_scale.float()
-    if impl == "plain":
-        return conv3x3_int8_plain(xq, wq, scale_vec, bias, stride=stride,
-                                  padding=padding, out_dtype=out_dtype)
     xq = xq.contiguous(memory_format=torch.channels_last)
     return conv3x3_int8(xq, wq, scale_vec, bias, stride=stride, padding=padding,
                         out_dtype=out_dtype)

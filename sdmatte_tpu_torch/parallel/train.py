@@ -4,7 +4,8 @@
 L1 on the alpha, the uncertainty-band-weighted L1, a gradient L1 and an
 optional feature-distillation term; AdamW with global-norm clipping over
 the trained parameters only; an EMA of the weights; checkpoints.  The loss
-runs the plain versions (``impl="plain"``), the counterpart of the JAX
+runs the plain versions (:func:`matting_loss` enters
+``ops/dispatch.implementation("plain")``), the counterpart of the JAX
 package's ``attn_impl="xla"``: no hand kernel has a backward, in either
 package (ops/_build.forward_only raises on one).
 
@@ -30,6 +31,7 @@ import torch.nn.functional as tF
 from torch import nn
 
 from ..core.dtypes import FP32, Policy
+from ..ops.dispatch import implementation
 
 # The reference freezes the VAE and the text tower and fine-tunes only the
 # U-Net; frozen=() trains everything.  A frozen tower gets no gradient and no
@@ -87,24 +89,24 @@ def _world(group) -> int:
 
 
 def matting_loss(model: nn.Module, batch: dict, *, policy: Policy = FP32,
-                 impl: str = "plain", loss_cfg: LossConfig = LossConfig(),
-                 frozen: Sequence[str] = FROZEN_TOWERS, remat: bool = False,
-                 group=None) -> torch.Tensor:
+                 loss_cfg: LossConfig = LossConfig(), frozen: Sequence[str] = FROZEN_TOWERS,
+                 remat: bool = False, group=None) -> torch.Tensor:
     """The composite loss of one batch (NCHW tensors: image, trimap,
     trimap_coords, is_trans, alpha_gt (B, 1, S, S), and teacher_features for
     the distillation term).
 
-    ``frozen`` towers get no gradient.  ``remat`` rematerialises the
-    U-Net's blocks.  Under ``cfg.use_dis_loss`` with ``teacher_features`` in
-    the batch, adds the L2 distance of the down/mid/up feature maps.
+    The model runs on the plain versions.  ``frozen`` towers get no
+    gradient.  ``remat`` rematerialises the U-Net's blocks.  Under
+    ``cfg.use_dis_loss`` with ``teacher_features`` in the batch, adds the L2
+    distance of the down/mid/up feature maps.
 
     ``group``: the process group of a data-parallel step, whose processes
     each hold an equal slice of the global batch.  The unknown-band term's
     denominator is then the global band's size, and the term is scaled so
     that the mean of the processes' losses is the global batch's loss (the
     mean terms need nothing: equal slices average to the global mean)."""
-    with _stop_gradient(model, frozen):
-        out = model(batch, policy=policy, impl=impl, remat=remat)
+    with _stop_gradient(model, frozen), implementation("plain"):
+        out = model(batch, policy=policy, remat=remat)
     pred, features = out if isinstance(out, tuple) else (out, None)
     gt = batch["alpha_gt"]
     l1 = (pred - gt).abs()
@@ -236,12 +238,11 @@ def apply_gradients(state: TrainState) -> None:
 
 
 def train_step(state: TrainState, batch: dict, *, policy: Policy = FP32,
-               impl: str = "plain", loss_cfg: LossConfig = LossConfig(),
-               frozen: Sequence[str] = FROZEN_TOWERS, remat: bool = False,
-               group=None) -> torch.Tensor:
+               loss_cfg: LossConfig = LossConfig(), frozen: Sequence[str] = FROZEN_TOWERS,
+               remat: bool = False, group=None) -> torch.Tensor:
     """One step in place: loss and gradients (averaged over ``group``), then
     :func:`apply_gradients`.  Returns the loss."""
-    loss = loss_and_grads(state, batch, policy=policy, impl=impl, loss_cfg=loss_cfg,
+    loss = loss_and_grads(state, batch, policy=policy, loss_cfg=loss_cfg,
                           frozen=frozen, remat=remat, group=group)
     apply_gradients(state)
     return loss
@@ -266,9 +267,8 @@ def ema_update_(ema: nn.Module, model: nn.Module, decay: float) -> None:
 
 def train_loop(model: nn.Module, *, steps: int, batch_size: int, mesh=None,
                sampler=None, learning_rate=1e-4, loss_cfg: LossConfig = LossConfig(),
-               policy: Policy = FP32, impl: str = "plain",
-               frozen: Sequence[str] = FROZEN_TOWERS, remat: bool = False,
-               ema_decay: float = 0.0, ckpt_dir: Optional[str] = None,
+               policy: Policy = FP32, frozen: Sequence[str] = FROZEN_TOWERS,
+               remat: bool = False, ema_decay: float = 0.0, ckpt_dir: Optional[str] = None,
                ckpt_every: int = 0, log_every: int = 10):
     """Fine-tune ``model`` in place on the device it lives on: prefetched
     composite batches -> (data-parallel) steps -> checkpoints.
@@ -288,7 +288,7 @@ def train_loop(model: nn.Module, *, steps: int, batch_size: int, mesh=None,
     # processes draw distinct data: each composites its own slice
     sampler = sampler or CompositeSampler(size=64, seed=rank)
     state = init_train_state(model, learning_rate, frozen=frozen)
-    step_kw = dict(policy=policy, impl=impl, loss_cfg=loss_cfg, frozen=frozen, remat=remat)
+    step_kw = dict(policy=policy, loss_cfg=loss_cfg, frozen=frozen, remat=remat)
     if mesh is not None:
         from .mesh import replicate
         replicate(model, mesh)

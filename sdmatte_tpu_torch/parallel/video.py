@@ -18,8 +18,7 @@ from ..core.dtypes import FP32, Policy
 
 @torch.no_grad()
 def matte_video(model, frames: torch.Tensor, trimaps: torch.Tensor, *, mesh=None,
-                is_transparent: bool = False, policy: Policy = FP32,
-                impl: str = "auto") -> torch.Tensor:
+                is_transparent: bool = False, policy: Policy = FP32) -> torch.Tensor:
     """frames (T, 3, S, S) and trimaps (T, 1, S, S) in [-1, 1] -> alpha
     (T, 1, S, S) fp32 in [0, 1], on the model's device.  ``model`` holds its
     weights in the policy's parameter dtype (ops/quant.stage_, as the
@@ -40,7 +39,7 @@ def matte_video(model, frames: torch.Tensor, trimaps: torch.Tensor, *, mesh=None
         "trimap_coords": torch.tensor([[0.0, 0.0, 1.0, 1.0]], device=dev).expand(n, 4),
         "is_trans": torch.full((n,), 1.0 if is_transparent else 0.0, device=dev),
     }
-    alpha = model(data, aux_input_type="trimap", policy=policy, impl=impl)
+    alpha = model(data, aux_input_type="trimap", policy=policy)
     if isinstance(alpha, tuple):    # cfg.use_dis_loss: (alpha, feature_maps)
         alpha = alpha[0]
     alpha = alpha.float().contiguous()

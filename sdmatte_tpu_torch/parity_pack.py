@@ -160,7 +160,7 @@ def golden_inputs(size: int, image: Optional[str] = None,
     return img.astype(np.float32), tri.astype(np.float32)
 
 
-def golden_dump(model, img: np.ndarray, tri: np.ndarray, *, impl: str = "auto") -> dict:
+def golden_dump(model, img: np.ndarray, tri: np.ndarray) -> dict:
     """One fp32 forward with ``return_intermediates`` on the model's device:
     {"alpha", "rgb_latent", "aux_latent", "aux_tokens", "unet_out",
     "decoded"} as NHWC numpy (the JAX package's layout; aux_tokens (B, L,
@@ -174,7 +174,7 @@ def golden_dump(model, img: np.ndarray, tri: np.ndarray, *, impl: str = "auto") 
             "trimap_coords": torch.tensor([[0.0, 0.0, 1.0, 1.0]], device=dev),
             "is_trans": torch.zeros(1, device=dev)}
     with torch.no_grad():
-        alpha, inter = model(data, impl=impl, return_intermediates=True)
+        alpha, inter = model(data, return_intermediates=True)
     dump = {"alpha": alpha}
     dump.update({k: v for k, v in inter.items() if isinstance(v, torch.Tensor)})
     return {k: (v.permute(0, 2, 3, 1) if v.ndim == 4 else v).float().cpu().numpy()

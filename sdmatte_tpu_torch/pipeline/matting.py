@@ -25,6 +25,7 @@ from ..core import imaging
 from ..core.dtypes import FP32, Policy
 from ..models.sdmatte import SDMatte
 from ..ops import quant
+from ..ops.dispatch import IMPLEMENTATIONS, implementation
 from ..utils import observability
 from . import postprocess
 from .graphs import HeavyGraphs
@@ -70,6 +71,8 @@ class MattingPipeline:
     ``impl``: "auto" runs the hand kernels on the card (the plain versions
     on the CPU); "plain" runs the plain versions on the card too, for
     checking the kernels end to end.  Nothing chooses "plain" by itself.
+    The heavy step runs inside ``ops/dispatch.implementation(impl)``
+    whatever the caller's scope, so a captured plan is the one its key names.
 
     ``tokenizer`` (models/tokenizer.CLIPTokenizer) turns captions into the
     text tower's ids; a model whose gating sends a stage to the text tokens
@@ -93,7 +96,7 @@ class MattingPipeline:
         if weight_storage not in ("fp", "int8"):
             raise ValueError(f"weight_storage must be 'fp' or 'int8', got "
                              f"{weight_storage!r}")
-        if impl not in ("auto", "plain"):
+        if impl not in IMPLEMENTATIONS:
             raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         self.device = resolve_device(device)
         self.cfg = model.cfg
@@ -142,12 +145,12 @@ class MattingPipeline:
         if text_ids is not None:
             data["text_ids"] = text_ids
         mode = self.speed_mode
-        alpha = self.model(data, aux_input_type=aux_type, policy=self.policy,
-                           impl=self.impl, vae_chunk=self.vae_chunk,
-                           vae_encode_split=self.vae_encode_split,
-                           speed_aux_half=mode in ("aux_half", "fast", "fastest"),
-                           speed_rgb_half=mode in ("rgb_half", "fastest"),
-                           speed_decode_half=mode in ("decode_half", "fast", "fastest"))
+        with implementation(self.impl):
+            alpha = self.model(data, aux_input_type=aux_type, policy=self.policy,
+                               vae_chunk=self.vae_chunk, vae_encode_split=self.vae_encode_split,
+                               speed_aux_half=mode in ("aux_half", "fast", "fastest"),
+                               speed_rgb_half=mode in ("rgb_half", "fastest"),
+                               speed_decode_half=mode in ("decode_half", "fast", "fastest"))
         if isinstance(alpha, tuple):
             # cfg.use_dis_loss makes the model return (alpha, feature_maps),
             # a training hook; inference keeps the alpha

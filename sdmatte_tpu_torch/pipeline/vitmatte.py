@@ -22,6 +22,7 @@ import torch.nn.functional as tF
 from ..core.dtypes import FP32, Policy
 from ..models.vitmatte import ViTMatte
 from ..ops import quant
+from ..ops.dispatch import IMPLEMENTATIONS, implementation
 from ..utils import observability
 from . import postprocess
 from .graphs import HeavyGraphs
@@ -46,13 +47,14 @@ class ViTMattePipeline:
     linear weight of at least 65,536 elements as int8 plus an fp32 scale,
     dequantized at its use (on a copy: the caller's model keeps its
     weights).  ``impl``: "auto" runs the hand kernels on the card (the plain
-    versions on the CPU); "plain" runs the plain versions on the card too."""
+    versions on the CPU); "plain" runs the plain versions on the card too
+    (the step inside ``implementation(impl)``, as ``MattingPipeline``'s)."""
 
     def __init__(self, model: ViTMatte, *, policy: Policy = FP32, device=None,
                  impl: str = "auto", weight_storage: str = "fp"):
         if weight_storage not in ("fp", "int8"):
             raise ValueError(f"weight_storage must be 'fp' or 'int8', got {weight_storage!r}")
-        if impl not in ("auto", "plain"):
+        if impl not in IMPLEMENTATIONS:
             raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
         self.device = resolve_device(device)
         self.cfg = model.cfg
@@ -79,7 +81,8 @@ class ViTMattePipeline:
         return self._graphs(key, self._model_alpha, (x,))
 
     def _model_alpha(self, x):
-        return self.model(x, policy=self.policy, impl=self.impl)[:, 0]
+        with implementation(self.impl):
+            return self.model(x, policy=self.policy)[:, 0]
 
     def _post(self, alpha_p, image, trimap, *, output_mode: str, refine: bool,
               trimap_constraint: float):

@@ -5,8 +5,7 @@ a lightweight metrics registry the server reports into, and a span recorder
 (``span``, ``record``, ``start``, ``drain``) that stamps named stretches of
 host time on the clock of ``torch.profiler``'s events, so that an operator
 can lay them over a device trace: which step the card idles in, how long a
-request waits in the server's queue, what the dequantization of int8-stored
-weights costs the host.
+request waits in the server's queue.
 """
 
 from __future__ import annotations
@@ -124,15 +123,11 @@ METRICS = Metrics()
 # The program's span sites, each for one reading:
 #   pipeline.heavy  the model call of MattingPipeline.__call__: the card's idle
 #                   time inside it, per matte
-#   model.unet      self.unet(...) in SDMatte.forward: the same, for the U-Net
-#   quant.dequant   the int8 branch of core/nn.kernel_of: host ms per matte
 #   serve.queued    a request in MicroBatcher's queue, submit to its batch
 #   serve.batch     the batcher's worker from a batch's selection to its last
 #                   answer handed out (stacking, the call, the copies back)
-#   model.vit       ViTMatte's ViTDet backbone (models/vitmatte.py)
-#   model.vitmatte_decoder  its detail decoder
-# (pipeline.heavy also wraps ViTMattePipeline's model call.)  The model spans
-# fire on eager calls only: a replayed heavy step runs no Python.
+# (pipeline.heavy also wraps ViTMattePipeline's model call.)  No span sits
+# inside the heavy step: a replayed step runs none of the model's Python.
 #
 # Counters in METRICS beside them: heavy.* (pipeline/graphs.py);
 # vitmatte.tables_built, the position tables ViTMatte makes, one set a token
@@ -143,7 +138,7 @@ METRICS = Metrics()
 # torch.profiler's own event stream (record_function): a trace with the
 # recorder on holds the same events as one with it off.
 
-SPAN_CAP = 1 << 18     # spans kept: a 40 s window of int8-storage mattes (~350 a matte) x3
+SPAN_CAP = 1 << 18     # spans kept
 
 
 class Span(NamedTuple):
@@ -227,7 +222,7 @@ _OFF = _Off()
 
 
 def span(name: str, **attrs):
-    """``with span("model.unet"):`` records the stretch of host time inside
+    """``with span("pipeline.heavy"):`` records the stretch of host time inside
     it while recording is on; ``attrs`` are kept with it."""
     if not ON:
         return _OFF

@@ -7,7 +7,8 @@ key separates what the step's shapes and branches depend on; the segmenter
 cuts a capture at each hand-kernel launch, and a plan replays graphs and
 launches in order on the caller's stream; the runner's flow (first call
 eager, then capture; replay by copy-in and clone; a failed capture falls
-back), with stub graphs in place of the card's.
+back), with stub graphs in place of the card's; a pipeline's step runs under
+its own implementation (ops/dispatch.implementation) whatever the caller's.
 
 On the card (``cuda``): at full width a replayed step equals the eager one,
 also after calls alternate between keys on one pipeline's pool; a replayed
@@ -20,6 +21,7 @@ This file imports no JAX, so that its ``cuda`` cases run on the card alone:
 
 import contextlib
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from sdmatte_tpu_torch.core import embeddings, imaging, tables
 from sdmatte_tpu_torch.core.dtypes import BF16
 from sdmatte_tpu_torch.models.sdmatte import SDMatte
 from sdmatte_tpu_torch.ops import _build
+from sdmatte_tpu_torch.ops.dispatch import implementation, plain_here
 from sdmatte_tpu_torch.pipeline import MattingPipeline, PipelineOptions
 from sdmatte_tpu_torch.pipeline import graphs
 from sdmatte_tpu_torch.utils.observability import METRICS
@@ -251,6 +254,49 @@ class StubRunner(graphs.HeavyGraphs):
 
     def _stream(self):
         return "the caller's stream"
+
+
+def _setting():
+    """The calling thread's implementation, as an entry point sees it for a
+    tensor on a device with no kernel (meta)."""
+    return "plain" if plain_here(torch.empty(0, device="meta")) else "auto"
+
+
+def _stub_pipeline(kind, impl):
+    """A tiny pipeline of ``kind`` on the stub runner, whose model records
+    the implementation it runs under and answers zeros."""
+    from sdmatte_tpu_torch.configs import ViTMatteConfig
+    from sdmatte_tpu_torch.models.vitmatte import ViTMatte
+    from sdmatte_tpu_torch.pipeline.vitmatte import ViTMattePipeline
+    if kind == "sdmatte":
+        pipe = MattingPipeline(SDMatte(SDMatteConfig.tiny()), device="cpu", impl=impl)
+    else:
+        pipe = ViTMattePipeline(ViTMatte(ViTMatteConfig.tiny()), device="cpu", impl=impl)
+    pipe._graphs, pipe.seen = StubRunner(), []
+
+    def model(x, **kw):
+        pipe.seen.append(_setting())
+        x = x["image"] if isinstance(x, dict) else x
+        return torch.zeros((x.shape[0], 1, *x.shape[2:]))
+    pipe.model = model
+    return pipe
+
+
+@pytest.mark.parametrize("kind", ["sdmatte", "vitmatte"])
+@pytest.mark.parametrize("impl, outer", [("plain", "auto"), ("auto", "plain")])
+def test_the_step_runs_under_its_pipelines_implementation(kind, impl, outer):
+    """Inside a caller's scope of the other value, the eager first call and
+    the capture both run under the pipeline's own; a replay runs no model."""
+    pipe = _stub_pipeline(kind, impl)
+    img, tri = _photo(size=32)
+    call = (functools.partial(pipe, options=PipelineOptions(inference_size=32))
+            if kind == "sdmatte" else pipe)
+    with implementation(outer):
+        first, _ = call(img, tri)
+        again, _ = call(img, tri)
+        assert _setting() == outer
+    assert pipe.seen == [impl, impl] and len(pipe._graphs.plans) == 1
+    assert torch.equal(first, again)
 
 
 def test_runner_captures_at_the_first_call_and_replays_by_copy_in_and_clone(stub_kernel):

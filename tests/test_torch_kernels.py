@@ -19,6 +19,7 @@ from sdmatte_tpu.ops.flash_attention import flash_attention as jax_flash_attenti
 
 from sdmatte_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_csplit, conv3x3_int8,
                                            conv3x3_int8_plain, conv3x3_plain)
+from sdmatte_tpu_torch.ops.dispatch import implementation, plain_here
 from sdmatte_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
 
@@ -149,6 +150,123 @@ def test_int8_wrapper_takes_the_plain_version_on_the_cpu(rng):
     got = conv3x3_int8(xq, wq, scale, **kw)
     assert got.shape == (2, 5, 4, 5)
     torch.testing.assert_close(got, conv3x3_int8_plain(xq, wq, scale, **kw), rtol=0, atol=0)
+
+
+# ------------------------------------------- the implementation scope ---
+# ops/dispatch.implementation: the one switch between a kernel and its plain
+# version, per thread, "auto" by default; every entry point asks plain_here.
+
+def _setting():
+    """The calling thread's implementation, as an entry point sees it for a
+    tensor on a device with no kernel (meta)."""
+    return "plain" if plain_here(torch.empty(0, device="meta")) else "auto"
+
+
+def test_the_default_is_auto_and_plain_is_the_cpu_alone():
+    assert _setting() == "auto"
+    assert plain_here(torch.empty(1)) and not plain_here(torch.empty(1, device="meta"))
+    with implementation("plain"):
+        assert plain_here(torch.empty(1, device="meta"))
+    with pytest.raises(ValueError, match="'auto' or 'plain'"):
+        with implementation("xla"):
+            pass
+
+
+@pytest.mark.parametrize("leave", ["on_exit", "on_an_exception"])
+def test_scopes_nest_and_restore_the_outer_setting(leave):
+    class Leave(Exception):
+        pass
+
+    with implementation("plain"):
+        try:
+            with implementation("auto"):
+                assert _setting() == "auto"
+                with implementation("plain"):
+                    assert _setting() == "plain"
+                assert _setting() == "auto"
+                if leave == "on_an_exception":
+                    raise Leave
+        except Leave:
+            pass
+        assert _setting() == "plain"
+    assert _setting() == "auto"
+
+
+def test_the_setting_is_per_thread():
+    import threading
+    inside, seen = threading.Event(), []
+
+    def other():
+        inside.wait(30)
+        seen.append(_setting())
+        with implementation("plain"):
+            seen.append(_setting())
+    t = threading.Thread(target=other)
+    t.start()
+    with implementation("plain"):
+        inside.set()
+        t.join(30)
+        assert _setting() == "plain"
+    assert seen == ["auto", "plain"] and _setting() == "auto"
+
+
+def _meta_site(name):
+    """A call of one entry point on the meta device, where only a plain
+    version can run (no kernel takes a meta tensor)."""
+    meta = torch.device("meta")
+    if name == "flash_attention":
+        q = torch.empty(1, 2, 16, 64, device=meta)
+        return lambda: flash_attention(q, q, q, scale=0.125)
+    if name == "conv3x3":
+        x = torch.empty(1, 16, 8, 8, device=meta).contiguous(memory_format=torch.channels_last)
+        return lambda: conv3x3(x, torch.empty(16, 16, 3, 3, device=meta))
+    xq = torch.empty(1, 16, 8, 8, device=meta, dtype=torch.int8)
+    wq = torch.empty(8, 16, 3, 3, device=meta, dtype=torch.int8)
+    return lambda: conv3x3_int8(xq, wq, torch.empty(8, device=meta), out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "conv3x3", "conv3x3_int8"])
+def test_every_entry_point_takes_the_plain_version_inside_plain(name):
+    call = _meta_site(name)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        call()
+    with implementation("plain"):
+        assert call().device.type == "meta"
+
+
+def _tiny_model():
+    from sdmatte_tpu_torch.configs import SDMatteConfig
+    from sdmatte_tpu_torch.models.init import init_random_
+    from sdmatte_tpu_torch.models.sdmatte import SDMatte
+    return init_random_(SDMatte(SDMatteConfig.tiny()), seed=0)
+
+
+def test_a_training_step_runs_under_plain(monkeypatch):
+    """The step's forward sees "plain" inside an outer "auto", and a
+    rematerialised block's recompute sees it too when the backward runs on
+    another thread, as the autograd engine runs a card's backward."""
+    import threading
+    from sdmatte_tpu_torch.models import unet
+    from sdmatte_tpu_torch.parallel import train
+    from sdmatte_tpu_torch.parallel.data import CompositeSampler, to_tensors
+    seen = {"forward": set(), "recompute": set()}
+    phase = ["forward"]
+    forward = unet.ResnetBlock.forward
+
+    def spy(self, *a):
+        seen[phase[0]].add(_setting())
+        return forward(self, *a)
+    monkeypatch.setattr(unet.ResnetBlock, "forward", spy)
+    model = _tiny_model()
+    batch = to_tensors(CompositeSampler(size=32).batch(1))
+    with implementation("auto"):
+        train.train_step(train.init_train_state(model, 1e-3), batch)
+        loss = train.matting_loss(model, batch, remat=True)
+    phase[0] = "recompute"
+    t = threading.Thread(target=loss.backward)
+    t.start()
+    t.join(120)
+    assert seen == {"forward": {"plain"}, "recompute": {"plain"}}
 
 
 # ------------------------------------------------------------- on the card ---
@@ -472,7 +590,8 @@ def test_forward_only_is_the_launch_and_refuses_a_backward(name):
     got = forward_only(kernel, fn, *tensors)
     torch.testing.assert_close(got, fn(*tensors), rtol=0, atol=0)
     assert got.requires_grad
-    with pytest.raises(RuntimeError, match=rf"{kernel} has no backward kernel.*impl=\"plain\""):
+    with pytest.raises(RuntimeError,
+                       match=rf"{kernel} has no backward kernel.*implementation\(\"plain\"\)"):
         got.float().square().sum().backward()
     with torch.no_grad():
         assert forward_only(kernel, fn, *tensors).grad_fn is None
@@ -518,8 +637,9 @@ def test_data_parallel_and_video_at_world_size_1_on_nccl(cuda, tmp_path):
         for (n, a), b in zip(model.named_parameters(), twin.parameters()):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7, msg=n)
         frames = batch["image"]
-        got = matte_video(model, frames, batch["trimap"], mesh=m, impl="plain")
-        ref = matte_video(model, frames, batch["trimap"], impl="plain")
+        with implementation("plain"):
+            got = matte_video(model, frames, batch["trimap"], mesh=m)
+            ref = matte_video(model, frames, batch["trimap"])
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
     finally:
         dist.destroy_process_group()

@@ -1,10 +1,9 @@
-"""The span recorder of ``utils/observability.py`` and the program's five
+"""The span recorder of ``utils/observability.py`` and the program's three
 span sites: off by default and then recording nothing, nesting and threads,
-the bounded buffer, one ``pipeline.heavy`` and one ``model.unet`` a pipeline
-call, one ``quant.dequant`` a use of an int8-stored weight, the
-MicroBatcher's ``serve.queued`` and ``serve.batch`` tied by request id, and
-the clock: a span around a torch op contains the op's profiler event, and
-no span reaches the profiler's event stream.
+the bounded buffer, one ``pipeline.heavy`` a pipeline call and no span
+inside it, the MicroBatcher's ``serve.queued`` and ``serve.batch`` tied by
+request id, and the clock: a span around a torch op contains the op's
+profiler event, and no span reaches the profiler's event stream.
 
 This file imports no JAX, so that its ``cuda`` case runs on the card alone:
 ``python -m pytest tests/test_torch_tracing.py -m cuda --noconftest``.
@@ -24,7 +23,6 @@ from torch.profiler import ProfilerActivity, profile
 
 from sdmatte_tpu_torch.api.serve import MicroBatcher
 from sdmatte_tpu_torch.configs import SDMatteConfig
-from sdmatte_tpu_torch.core import nn as core_nn
 from sdmatte_tpu_torch.models.sdmatte import SDMatte
 from sdmatte_tpu_torch.ops import quant
 from sdmatte_tpu_torch.pipeline import MattingPipeline, PipelineOptions
@@ -163,44 +161,10 @@ def test_pipeline_call_records_heavy_and_unet_once(tiny_model):
     on, _ = pipe(img, tri, options=OPTS)
     spans, dropped = obs.drain()
     by = _by_name(spans)
-    assert dropped == 0 and sorted(by) == ["model.unet", "pipeline.heavy"]
-    (heavy,), (unet,) = by["pipeline.heavy"], by["model.unet"]
-    assert heavy.attrs == {} and unet.parent == heavy.id
-    assert heavy.start_ns <= unet.start_ns <= unet.end_ns <= heavy.end_ns
+    assert dropped == 0 and sorted(by) == ["pipeline.heavy"]
+    (heavy,) = by["pipeline.heavy"]
+    assert heavy.attrs == {} and heavy.parent is None and heavy.start_ns <= heavy.end_ns
     torch.testing.assert_close(on, off, rtol=0, atol=0)
-
-
-def test_int8_storage_records_one_dequant_per_use(int8_pipe, monkeypatch):
-    uses = []
-    own = core_nn._dequantize
-
-    def counted(p, dtype):
-        uses.append(id(p))
-        return own(p, dtype)
-    monkeypatch.setattr(core_nn, "_dequantize", counted)
-    img, tri = _inputs()
-    int8_pipe(img, tri, options=OPTS)
-    n_off = len(uses)
-    obs.start()
-    int8_pipe(img, tri, options=OPTS)
-    spans, dropped = obs.drain()
-    by = _by_name(spans)
-    deq = by["quant.dequant"]
-    assert dropped == 0 and n_off > 0 and len(uses) == 2 * n_off
-    assert len(deq) == n_off
-    stored = {id(m) for m in int8_pipe.model.modules() if "weight_i8" in m._buffers}
-    assert set(uses[n_off:]) <= stored
-    (heavy,), (unet,) = by["pipeline.heavy"], by["model.unet"]
-    assert all(heavy.start_ns <= s.start_ns <= s.end_ns <= heavy.end_ns and s.attrs == {}
-               and s.thread == heavy.thread for s in deq)
-    assert sum(unet.start_ns <= s.start_ns <= s.end_ns <= unet.end_ns for s in deq) > 0
-
-
-def test_kernel_of_without_int8_storage_records_nothing():
-    lin = torch.nn.Linear(4, 4)
-    obs.start()
-    core_nn.kernel_of(lin, torch.float32)
-    assert obs.drain().spans == []
 
 
 class _Stub:
@@ -283,7 +247,7 @@ def test_the_profiler_gains_no_event_from_the_spans(int8_pipe):
     on = collections.Counter(e.name() for e in _profiled(call))
     spans, _ = obs.drain()
     names = {s.name for s in spans}
-    assert {"pipeline.heavy", "model.unet", "quant.dequant"} <= names
+    assert names == {"pipeline.heavy"}
     assert on == off
     assert not names & set(on)
 
@@ -315,10 +279,7 @@ def test_span_readings_on_synthetic_spans():
     def sp(name, a, b, **attrs):
         return obs.Span(next(ids), name, int(a * ms), int(b * ms), 1, None, attrs)
     spans = [sp("pipeline.heavy", 10, 60), sp("pipeline.heavy", 60, 90),       # before
-             sp("pipeline.heavy", 105, 135), sp("pipeline.heavy", 145, 148),   # in the stretch
-             sp("model.unet", 106, 125),
-             sp("quant.dequant", 11, 12), sp("quant.dequant", 13, 15), sp("quant.dequant", 61, 64),
-             sp("quant.dequant", 107, 108)]
+             sp("pipeline.heavy", 105, 135), sp("pipeline.heavy", 145, 148)]   # in the stretch
     spans += [sp("serve.queued", 10 * i, 11 * i, request=i) for i in range(1, 21)]
     spans += [sp("serve.queued", 250, 260, request=21),                        # after the window
               sp("serve.batch", 55, 56, requests=[5]),                         # ids match
@@ -327,8 +288,7 @@ def test_span_readings_on_synthetic_spans():
     got = t.readings(spans, busy, (100 * ms, 150 * ms), 2, (0, 200 * ms))
     assert got["idle_ms_per_matte"] == 15.0
     assert got["pipeline.heavy_idle_ms"] == (5 + 10 + 3) / 2
-    assert got["model.unet_idle_ms"] == (4 + 5) / 2
-    assert got["quant.dequant_ms"] == (1 + 2 + 3) / 2 and got["dequant_spans_per_matte"] == 1.5
+    assert not {"model.unet_idle_ms", "quant.dequant_ms", "dequant_spans_per_matte"} & set(got)
     assert (got["serve.queue_wait_ms"], got["queue_wait_p50_ms"]) == (19.0, 10.0)
     assert got["queue_wait_samples"] == 20
     assert got["serve_batches"] == 2 and got["serve_batches_whose_ids_mismatch"] == 1

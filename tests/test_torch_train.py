@@ -39,6 +39,7 @@ from test_torch_models import _randomized_params
 from sdmatte_tpu_torch.checkpoint.convert import load_params, params_to_state_dict
 from sdmatte_tpu_torch.configs import SDMatteConfig
 from sdmatte_tpu_torch.models.sdmatte import SDMatte
+from sdmatte_tpu_torch.ops.dispatch import implementation
 from sdmatte_tpu_torch.parallel import checkpointing, train
 from sdmatte_tpu_torch.parallel.data import CompositeSampler, to_tensors
 
@@ -72,8 +73,8 @@ def setup():
     for _ in range(3):
         b = sampler.batch(2)
         pb = to_tensors(b)
-        with torch.no_grad():
-            _, feats = model(pb, impl="plain")
+        with torch.no_grad(), implementation("plain"):
+            _, feats = model(pb)
         teacher = [rng.normal(0, 1, tuple(f.shape)).astype(np.float32) for f in feats]
         pb["teacher_features"] = [torch.from_numpy(t) for t in teacher]
         b["teacher_features"] = [t.transpose(0, 2, 3, 1) for t in teacher]

@@ -76,7 +76,7 @@ def test_blocks_match_the_reference():
                                        stride=16).permute(0, 2, 3, 1)
         s = ref._sizes(conf)
         for i, layer in enumerate(model.backbone.encoder.layer):
-            got = layer(t, *tabs.relative[i], policy=FP32, impl="auto")
+            got = layer(t, *tabs.relative[i], policy=FP32)
             want = ref.block(params, conf, i, t, s)
             torch.testing.assert_close(got, want, atol=5e-5, rtol=5e-5)
             t = want
@@ -389,12 +389,12 @@ def test_launches_a_matte_at_the_published_config(monkeypatch):
         return torch.empty_like(q)
 
     import sdmatte_tpu_torch.models.vitmatte as vm
-    monkeypatch.setattr(attention_mod, "flash_attention", count)
+    assert vm.flash_attention is flash_attention
+    monkeypatch.setattr(vm, "flash_attention", count)
     with torch.device("meta"):
         model = ViTMatte(ViTMatteConfig())
     x = torch.empty((1, 4, 3040, 4032), device="meta", dtype=torch.bfloat16)
     model.forward(x, policy=BF16)
-    assert vm.attention is attention_mod.attention
     glob = [(1, 12, 47880, 64), 190, 252]
     win = [(252, 12, 196, 64), 14, 14]
     assert [list(c) for c in calls] == [win, win, glob] * 4

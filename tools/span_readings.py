@@ -1,12 +1,10 @@
 """One traced matbench run with the program's span recorder on (or off), and
-the five readings of its spans, until matbench reads them itself:
+the three readings of its spans, until matbench reads them itself:
 
-- pipeline.heavy_idle_ms, model.unet_idle_ms, serve.host_idle_ms: the card's
-  idle time in the profiled stretch (no kernel, copy or set running: the
-  merge that device.idle_pct uses) inside the union of the span's
-  intervals, per matte completed in the stretch;
-- quant.dequant_ms: host ms inside quant.dequant spans per matte, before
-  the stretch (the profiler slows the host), with the spans' count;
+- pipeline.heavy_idle_ms, serve.host_idle_ms: the card's idle time in the
+  profiled stretch (no kernel, copy or set running: the merge that
+  device.idle_pct uses) inside the union of the span's intervals, per matte
+  completed in the stretch;
 - serve.queue_wait_ms: the 95th percentile (nearest rank) of serve.queued
   over the requests that joined the queue in the window; and the check
   that every serve.batch holds exactly the ids of the serve.queued spans
@@ -18,13 +16,8 @@ less the first call of each key where the graphs engage; ViTMatte's
 counters over the run and inside the window (``vitmatte.tables_built``,
 position tables made, which reads 0 in the window;
 ``attention.relpos_launches``, K1's launches in its relative-position
-mode) and the host ms of its two spans, ``model.vit`` and
-``model.vitmatte_decoder``, per eager call (for this cell the recorder runs
-from the set-up on, where its eager calls are); and the card's memory at the
-stretch's close, while the pipeline lives: allocated, reserved, and the
-part of reserved that graph pools hold.  On the replayed calls the model's
-Python does not run, so model.unet, model.vit, model.vitmatte_decoder and
-quant.dequant spans come from eager calls only.
+mode); and the card's memory at the stretch's close, while the pipeline
+lives: allocated, reserved, and the part of reserved that graph pools hold.
 
     python3 tools/span_readings.py --workload <cell> --seed <n> [--seconds 40] [--recorder 0|1]
     python3 tools/span_readings.py --workload <cell> --seed <n> --seconds 8 --rehearse   # CPU, tiny
@@ -79,7 +72,7 @@ def nearest_rank(values, q: float):
 
 
 def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
-    """The five readings from the drained spans, the card's merged busy
+    """The three readings from the drained spans, the card's merged busy
     intervals and the stretch's (first, last) event in ns, the mattes
     completed in the stretch, and the window's (open, close) in ns."""
     t0, t1 = bounds
@@ -96,15 +89,9 @@ def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
     out = {"spans": {k: len(v) for k, v in by.items()},
            "idle_ms_per_matte": overlap(idle, [[t0, t1]]) / 1e6 / mattes if mattes else None}
     for metric, name in (("pipeline.heavy_idle_ms", "pipeline.heavy"),
-                         ("model.unet_idle_ms", "model.unet"),
                          ("serve.host_idle_ms", "serve.batch")):
         iv = union([(s.start_ns, s.end_ns) for s in by.get(name, [])])
         out[metric] = overlap(iv, idle) / 1e6 / mattes if mattes and iv else None
-    before = [h for h in by.get("pipeline.heavy", []) if h.end_ns < t0]
-    deq = [s for s in by.get("quant.dequant", []) if s.end_ns < t0]
-    if deq and before:            # a closed loop: one matte a pipeline call
-        out["quant.dequant_ms"] = sum(s.end_ns - s.start_ns for s in deq) / 1e6 / len(before)
-        out["dequant_spans_per_matte"] = len(deq) / len(before)
     queued = by.get("serve.queued", [])
     if queued:
         w0, close = window_ns
@@ -127,7 +114,6 @@ def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
 HEAVY_COUNTERS = ("heavy.graph_captures", "heavy.graph_replays", "heavy.graph_fallbacks",
                   "heavy.eager")
 VITMATTE_COUNTERS = ("vitmatte.tables_built", "attention.relpos_launches")
-VITMATTE_SPANS = ("model.vit", "model.vitmatte_decoder")
 
 
 def heavy_graphs(counters) -> dict:
@@ -138,16 +124,13 @@ def heavy_graphs(counters) -> dict:
     return out
 
 
-def vitmatte(counters, at_open, spans) -> dict:
+def vitmatte(counters, at_open) -> dict:
     """ViTMatte's counters over the run and inside the window (from its
-    open to the run's end), and the mean host ms of its spans."""
+    open to the run's end)."""
     out = {}
     for k in VITMATTE_COUNTERS:
         out[k] = counters.get(k, 0.0)
         out[k + ".in_window"] = counters.get(k, 0.0) - at_open.get(k, 0.0)
-    for name in VITMATTE_SPANS:
-        ms = [(s.end_ns - s.start_ns) / 1e6 for s in spans if s.name == name]
-        out[name + "_ms"] = sum(ms) / len(ms) if ms else None
     return out
 
 
@@ -191,7 +174,7 @@ def main():
         reset(device)
         got["w0_ns"] = time.time_ns()
         got["counters_at_open"] = dict(obs.METRICS.counters)
-        if a.recorder and not vit:
+        if a.recorder:
             obs.start()
     harness._reset_peak = reset_peak
 
@@ -241,8 +224,6 @@ def main():
     else:
         device = torch.device("cuda", 0)
     print(f"card: {harness.card_note()}", file=sys.stderr)
-    if a.recorder and vit:        # its spans fire at the eager first calls, in the set-up
-        obs.start()
     res = harness.run(a.workload, a.seed, a.seconds, True, device=device, t0=mrun.T0, **kw)
     for note in res.notes:
         print(note, file=sys.stderr)
@@ -257,7 +238,7 @@ def main():
            **got.get("memory", {})}
     spans, out["dropped"] = got["drained"]
     if vit:
-        out.update(vitmatte(obs.METRICS.counters, got.get("counters_at_open", {}), spans))
+        out.update(vitmatte(obs.METRICS.counters, got.get("counters_at_open", {})))
     if a.recorder:
         window = (got["w0_ns"], got["w0_ns"] + int(a.seconds * 1e9))
         out.update(readings(spans, got.get("busy", []), got.get("bounds", (math.inf, math.inf)),
