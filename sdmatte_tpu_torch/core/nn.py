@@ -104,44 +104,27 @@ def upsample2x_conv(p: nn.Conv2d, x: torch.Tensor, *, policy: Policy = FP32) -> 
 
 
 def group_norm_stats(p: nn.GroupNorm, x: torch.Tensor):
-    """Per-(batch, channel) fp32 (a, d) with GroupNorm(x) = x * a + d; the
-    pair feeds the 3x3 conv kernel's prologue.
-
-    The per-channel sums of x and x^2 accumulate in fp32 inside the
-    reductions (on the card a bf16 input is read once per sum, with no fp32
-    copy and no squared tensor); the group statistics follow the JAX
-    package's E[x^2] - E[x]^2."""
-    b, c, h, w = x.shape
-    groups, cg = p.num_groups, c // p.num_groups
-    n = float(h * w * cg)
-    s1 = x.sum(dim=(2, 3), dtype=torch.float32)
-    s2 = torch.linalg.vector_norm(x, 2, dim=(2, 3), dtype=torch.float32).square()
-    gm = s1.reshape(b, groups, cg).sum(-1) / n
-    g2 = s2.reshape(b, groups, cg).sum(-1) / n
-    inv = torch.rsqrt(g2 - gm.square() + p.eps)
-    inv_c = inv.repeat_interleave(cg, dim=-1)
-    mean_c = gm.repeat_interleave(cg, dim=-1)
-    a = inv_c * p.weight.float()[None]
-    d = p.bias.float()[None] - mean_c * a
-    return a, d
+    """Per-(batch, channel) fp32 (a, d) with GroupNorm(x) = x * a + d, the
+    pair the 3x3 conv kernel's prologue takes (ops/group_norm.py: a hand
+    kernel on the card, fp32 E[x^2] - E[x]^2 statistics as the JAX
+    package's)."""
+    from ..ops.group_norm import group_norm_stats as stats
+    return stats(p, x)
 
 
 def group_norm(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     """GroupNorm with fp32 statistics and an fp32 apply, written in the
-    input's dtype by one pass (a differentiable pass in the promoted dtype,
-    then cast, when autograd records: an ``out=`` op has no gradient)."""
+    input's dtype by one pass."""
+    from ..ops.group_norm import group_norm_apply
     a, d = group_norm_stats(p, x)
-    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad):
-        return torch.addcmul(d[:, :, None, None], x, a[:, :, None, None]).to(x.dtype)
-    return torch.addcmul(d[:, :, None, None], x, a[:, :, None, None],
-                         out=torch.empty_like(x))
+    return group_norm_apply(x, a, d, silu=False)
 
 
 def gn_silu(p: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """silu(GroupNorm(x)), the SiLU in place on the norm's output unless
-    autograd records it."""
-    y = group_norm(p, x)
-    return tF.silu(y, inplace=not y.requires_grad)
+    """silu(GroupNorm(x)): on the card the SiLU rides the apply's one pass."""
+    from ..ops.group_norm import group_norm_apply
+    a, d = group_norm_stats(p, x)
+    return group_norm_apply(x, a, d, silu=True)
 
 
 def gn_silu_conv2d(p_norm: nn.GroupNorm, p_conv: nn.Conv2d, x: torch.Tensor, *,

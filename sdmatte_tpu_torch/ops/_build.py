@@ -16,7 +16,10 @@ gradient through a kernel would be dropped without a word.
 While a thread captures a CUDA graph of the pipeline's heavy step
 (pipeline/graphs.py), :data:`CAPTURE` holds that capture's segmenter, and a
 launch on that thread cuts the capture there instead of running: the kernel
-runs between two graphs at each replay, through :meth:`Kernel.launch`.
+runs between two graphs at each replay, through :meth:`Kernel.launch`.  A
+kernel built with ``cuts=False`` runs on the capturing stream instead, so the
+open graph records it, and the segmenter keeps its count for the plan, which
+adds it at each replay (:func:`tally` does the same for a counter).
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..utils import observability
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention", "conv3x3", "conv3x3_i8")
+SOURCES = ("flash_attention", "conv3x3", "conv3x3_i8", "group_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -115,34 +120,54 @@ class _Capture(threading.local):
 CAPTURE = _Capture()
 
 
+def tally(name: str) -> None:
+    """Count ``name`` in ``observability.METRICS`` once: now, or inside a
+    graph capture on this thread at each replay of its plan (a replay runs
+    no Python)."""
+    seg = CAPTURE.segmenter
+    if seg is None:
+        observability.METRICS.count(name)
+    else:
+        seg.hold(name)
+
+
 class Kernel:
     """One hand kernel: where it lives, what it replaces, and its launch count.
 
-    ``launches`` is a plain integer that :meth:`launch` raises by one per
+    ``launches`` is a plain integer that :meth:`count` raises by one per
     successful launch and nothing else touches, so a caller can zero it,
-    drive a code path, and read how often the path reached the kernel.
+    drive a code path, and read how often the path reached the kernel; a
+    kernel with a ``counter`` also counts it in ``observability.METRICS``.
+    ``cuts`` says what a graph capture does with a launch (:meth:`launch`).
     Every kernel joins ``Kernel.registry`` when its module is imported."""
 
     registry: list["Kernel"] = []
 
     def __init__(self, name: str, library: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, *, cuts: bool = True, counter: str | None = None):
         self.name = name
         self.library = library
         self.symbol = symbol
         self.argtypes = argtypes
         self.replaces = replaces
+        self.cuts = cuts
+        self.counter = counter
         self.source = f"sdmatte_tpu_torch/csrc/{library}.cu"
         self.launches = 0
         self._fn = None
         Kernel.registry.append(self)
 
     def launch(self, *args) -> None:
-        """Run the kernel on the stream of the last argument; inside a graph
-        capture on this thread, hand it to the capture's plan instead (it is
-        neither run nor counted until the plan replays it)."""
-        if CAPTURE.segmenter is not None:
-            CAPTURE.segmenter.cut(self, args)
+        """Run the kernel on the stream of the last argument.  Inside a graph
+        capture on this thread a kernel that cuts is handed to the capture's
+        plan instead (neither run nor counted until the plan replays it);
+        one built with ``cuts=False`` runs on the capturing stream, where the
+        open graph records it, and is counted at each replay of the plan.
+        Its library is loaded at its first launch, which for a captured
+        step is the key's eager first call."""
+        seg = CAPTURE.segmenter
+        if seg is not None and self.cuts:
+            seg.cut(self, args)
             return
         if self._fn is None:
             lib = load(self.library)
@@ -155,7 +180,15 @@ class Kernel:
             msg = self._lib.sdm_error_string(err).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{err} ({msg})")
-        self.launches += 1
+        if seg is None:
+            self.count(1)
+        else:
+            seg.hold(self)
+
+    def count(self, n: int) -> None:
+        self.launches += n
+        if self.counter is not None:
+            observability.METRICS.count(self.counter, n)
 
 
 class _ForwardOnly(torch.autograd.Function):

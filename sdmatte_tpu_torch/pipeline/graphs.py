@@ -5,14 +5,17 @@ a matte, most of them small torch ops; handed out one by one by the host,
 they leave the card waiting on the host for almost half of the step.  From
 CUDA graphs they cost the host one call per graph.
 
-The hand kernels stay outside the graphs.  While a step is captured, each
-``Kernel.launch`` cuts the capture (ops/_build.CAPTURE): the graph so far
+K1-K4 stay outside the graphs.  While a step is captured, each of their
+``Kernel.launch`` calls cuts the capture (ops/_build.CAPTURE): the graph so far
 ends, the kernel and its arguments join the plan, and the next graph begins
 in the same memory pool on the same stream.  The plan is [graph, (kernel,
 args), graph, ..., graph], and a replay runs it in order: each kernel goes
 through ``kernel.launch`` (looked up at the call, so a wrapper installed on
 the kernel sees the launch and ``Kernel.launches`` counts it) with the
-current stream in place of the capture's.
+current stream in place of the capture's.  The GroupNorm kernels
+(``cuts=False``) run inside the graphs; the segmenter counts what the capture
+met of them (and of ``_build.tally``'s counters), and a replay adds those
+counts.
 
 A step's key holds everything its shapes and branches depend on.  The first
 call of a key runs eagerly on a side stream, which is also the warm-up a
@@ -66,12 +69,18 @@ class Segmenter:
     def __init__(self, open_graph: Callable):
         self._open_graph = open_graph
         self.steps: list = []
+        self.held: dict = {}        # kernel or counter name -> times the graphs hold it
         self._graph = open_graph()
 
     def cut(self, kernel, args: tuple) -> None:
         self._close()
         self.steps.append((kernel, args))
         self._graph = self._open_graph()
+
+    def hold(self, what) -> None:
+        """A kernel launched inside the open graph, or a counter name, which
+        each replay of the plan counts once more."""
+        self.held[what] = self.held.get(what, 0) + 1
 
     def finish(self) -> list:
         self._close()
@@ -92,12 +101,15 @@ class Segmenter:
 
 class Plan:
     """A key's captured step: the static inputs, the steps, the static
-    output, and the device tables the graphs read."""
+    output, the device tables the graphs read, and what the graphs hold that
+    each replay counts (``Segmenter.held``)."""
 
-    __slots__ = ("inputs", "steps", "output", "tables")
+    __slots__ = ("inputs", "steps", "output", "tables", "counts")
 
-    def __init__(self, inputs: tuple, steps: list, output: torch.Tensor, held: list):
+    def __init__(self, inputs: tuple, steps: list, output: torch.Tensor, held: list,
+                 counts: Optional[dict] = None):
         self.inputs, self.steps, self.output, self.tables = inputs, steps, output, held
+        self.counts = list((counts or {}).items())
 
     def __call__(self, args: tuple, stream) -> torch.Tensor:
         """Copy ``args`` in, run the steps in order, each kernel on
@@ -112,6 +124,11 @@ class Plan:
                 kernel.launch(*kargs[:-1], stream)
             else:
                 step.replay()
+        for what, n in self.counts:
+            if isinstance(what, str):
+                observability.METRICS.count(what, n)
+            else:
+                what.count(n)
         return self.output.clone()
 
 
@@ -181,7 +198,7 @@ class HeavyGraphs:
                 "the heavy step's graph capture failed; this key runs eagerly", exc_info=True)
             return None
         observability.METRICS.count("heavy.graph_captures")
-        return Plan(statics, steps, output, held)
+        return Plan(statics, steps, output, held, seg.held)
 
     # -- the card's side (the CPU tests put stubs in their place) -------------
 

@@ -132,7 +132,10 @@ METRICS = Metrics()
 # Counters in METRICS beside them: heavy.* (pipeline/graphs.py);
 # vitmatte.tables_built, the position tables ViTMatte makes, one set a token
 # grid (0 in a window that meets no new photo size); attention.relpos_launches,
-# K1's launches in its relative-position mode, replays included.
+# K1's launches in its relative-position mode, replays included;
+# norm.kernel_launches, the GroupNorm kernels' launches, replays included (a
+# plan adds those its graphs hold), and norm.plain_sites, the GroupNorm sites
+# whose plain statistics ran (ops/group_norm.py).
 # Stamps are time.time_ns(), the clock torch.profiler's events carry, so a
 # span can be intersected with a trace's device intervals.  No span enters
 # torch.profiler's own event stream (record_function): a trace with the

@@ -4,6 +4,7 @@ Layers take the port's ``nn.Module``s and the JAX package's param dicts,
 both filled from the same numpy arrays.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,6 +119,43 @@ def test_group_norm_stats(rng):
     a, d = F.group_norm_stats(mod, _nchw(x))
     np.testing.assert_allclose(a.numpy(), np.asarray(ra), **TOL)
     np.testing.assert_allclose(d.numpy(), np.asarray(rd), **TOL)
+
+
+# (NHWC shape, groups, eps): 8 channels a group; C = 320 at 32 groups (10 a
+# group, as the U-Net's first level has); a batch of 3 at 6 a group
+GN_CASES = [((2, 6, 5, 64), 8, 1e-6), ((1, 4, 3, 320), 32, 1e-5), ((3, 2, 7, 24), 4, 1e-6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape,groups,eps", GN_CASES, ids=str)
+def test_plain_group_norm_versions_against_jax(rng, shape, groups, eps, dtype):
+    """ops/group_norm.py's plain versions, which the CPU and the "plain" scope
+    run, against the JAX package's group_norm_stats and group_norm (then
+    silu), and core/nn's entry points equal to them bit for bit on the CPU.
+    In bf16 the statistics are fp32 on both sides; the outputs are one bf16
+    rounding of nearly the same fp32 value, so within one bf16 ulp."""
+    from sdmatte_tpu_torch.ops import group_norm as gn
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    x = rng.normal(0.3, 2.0, shape).astype(np.float32)
+    x = np.array(jnp.asarray(x, jdt).astype(jnp.float32))       # representable in dtype
+    c = shape[-1]
+    mod, p = _norm(rng, nn.GroupNorm, c, num_groups=groups, num_channels=c, eps=eps)
+    xt = _nchw(x).to(dtype)
+    ra, rd = jax_nn.group_norm_stats(p, jnp.asarray(x, jdt), groups=groups, eps=eps)
+    a, d = gn.group_norm_stats_plain(mod, xt)
+    assert a.dtype == d.dtype == torch.float32
+    np.testing.assert_allclose(a.numpy(), np.asarray(ra), **TOL)
+    np.testing.assert_allclose(d.numpy(), np.asarray(rd), **TOL)
+    ref = jax_nn.group_norm(p, jnp.asarray(x, jdt), groups=groups, eps=eps)
+    tol = TOL if dtype == torch.float32 else dict(atol=1e-6, rtol=2.0 ** -7)
+    for silu, want in ((False, ref), (True, jax.nn.silu(ref.astype(jnp.float32)).astype(jdt))):
+        y = gn.group_norm_apply_plain(xt, a, d, silu)
+        assert y.dtype == dtype
+        np.testing.assert_allclose(_nhwc(y.float()), np.asarray(want, np.float32), **tol)
+        entry = F.gn_silu(mod, xt) if silu else F.group_norm(mod, xt)
+        assert torch.equal(entry, y)
+    ea, ed = F.group_norm_stats(mod, xt)
+    assert torch.equal(ea, a) and torch.equal(ed, d)
 
 
 @pytest.mark.parametrize("residual", [False, True])

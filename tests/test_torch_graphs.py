@@ -19,6 +19,7 @@ This file imports no JAX, so that its ``cuda`` cases run on the card alone:
 ``python -m pytest tests/test_torch_graphs.py -m cuda --noconftest``.
 """
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -478,6 +479,38 @@ def test_a_replayed_call_launches_and_shows_every_hand_kernel(card_pipe):
     assert _delta(before)["heavy.graph_replays"] == 1
     assert (K1.launches, K2.launches, K3.launches) == (32, 2, 11)
     assert seen == {K1.name: 32, K2.name: 2, K3.name: 11}
+
+
+@pytest.mark.cuda
+def test_a_replayed_matte_holds_the_norm_kernels_inside_46_graphs(card_pipe):
+    """A 1024 px matte's plan: 46 graphs and 45 cut launches (K1 32, K2 2, K3
+    11), the GroupNorm kernels inside the graphs: at a replay 113 statistics
+    and 113 finishes, 103 applies (10 sites are K3's prologue), no plain
+    site; the replay equals the eager call of the same input bit for bit."""
+    from sdmatte_tpu_torch.ops import group_norm as gn
+    pipe = MattingPipeline(card_pipe.model, policy=BF16, device=card_pipe.device)
+    args = _card_inputs(pipe, 1, 1024, seed=21)
+    with torch.no_grad():
+        pipe._heavy(*args, aux_type="trimap")               # eager, then captured
+        (plan,) = pipe._graphs.plans.values()
+        cuts = collections.Counter(s[0].name for s in plan.steps if type(s) is tuple)
+        n_graphs = sum(type(s) is not tuple for s in plan.steps)
+        kernels = (gn.GN_STATS, gn.GN_FINISH, gn.GN_APPLY)
+        for k in kernels:
+            k.launches = 0
+        counts = {n: METRICS.counters.get(n, 0.0) for n in (gn.LAUNCHES, gn.PLAIN_SITES)}
+        args = _card_inputs(pipe, 1, 1024, seed=22)
+        got = pipe._heavy(*args, aux_type="trimap")
+        launches = [k.launches for k in kernels]
+        delta = {n: METRICS.counters.get(n, 0.0) - v for n, v in counts.items()}
+        eager = pipe._model_alpha(*args, None, aux_type="trimap")
+    print(f"plan: {n_graphs} graphs, cuts {dict(cuts)}; norm launches {launches}, {delta}; "
+          f"max |eager - replayed| {(eager - got).abs().max().item()}")
+    assert n_graphs == 46 and cuts == {"flash_attention_k1": 32, "flash_attention_k2": 2,
+                                       "conv3x3": 11}
+    assert launches == [113, 113, 103]
+    assert delta == {gn.LAUNCHES: 329, gn.PLAIN_SITES: 0}
+    assert torch.equal(got, eager)
 
 
 @pytest.mark.cuda

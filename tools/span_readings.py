@@ -16,8 +16,12 @@ less the first call of each key where the graphs engage; ViTMatte's
 counters over the run and inside the window (``vitmatte.tables_built``,
 position tables made, which reads 0 in the window;
 ``attention.relpos_launches``, K1's launches in its relative-position
-mode); and the card's memory at the stretch's close, while the pipeline
-lives: allocated, reserved, and the part of reserved that graph pools hold.
+mode); the GroupNorm counters over the run and inside the window
+(``norm.kernel_launches``, the statistics, finish and apply kernels'
+launches, replays included; ``norm.plain_sites``, the sites whose plain
+statistics ran, which reads 0 on the card); and the card's memory at the
+stretch's close, while the pipeline lives: allocated, reserved, and the part
+of reserved that graph pools hold.
 
     python3 tools/span_readings.py --workload <cell> --seed <n> [--seconds 40] [--recorder 0|1]
     python3 tools/span_readings.py --workload <cell> --seed <n> --seconds 8 --rehearse   # CPU, tiny
@@ -114,6 +118,7 @@ def readings(spans, busy, bounds, mattes: int, window_ns) -> dict:
 HEAVY_COUNTERS = ("heavy.graph_captures", "heavy.graph_replays", "heavy.graph_fallbacks",
                   "heavy.eager")
 VITMATTE_COUNTERS = ("vitmatte.tables_built", "attention.relpos_launches")
+NORM_COUNTERS = ("norm.kernel_launches", "norm.plain_sites")
 
 
 def heavy_graphs(counters) -> dict:
@@ -124,11 +129,11 @@ def heavy_graphs(counters) -> dict:
     return out
 
 
-def vitmatte(counters, at_open) -> dict:
-    """ViTMatte's counters over the run and inside the window (from its
-    open to the run's end)."""
+def in_window(names, counters, at_open) -> dict:
+    """Counters over the run and inside the window (from its open to the
+    run's end)."""
     out = {}
-    for k in VITMATTE_COUNTERS:
+    for k in names:
         out[k] = counters.get(k, 0.0)
         out[k + ".in_window"] = counters.get(k, 0.0) - at_open.get(k, 0.0)
     return out
@@ -235,10 +240,12 @@ def main():
            "launches_per_matte": len(r.kernels) / r.mattes if r.mattes else None,
            "idle_pct": 100 * (1 - r.busy_s / r.window_s) if r.window_s else None,
            "correct": res.correct, **heavy_graphs(obs.METRICS.counters),
+           **in_window(NORM_COUNTERS, obs.METRICS.counters, got.get("counters_at_open", {})),
            **got.get("memory", {})}
     spans, out["dropped"] = got["drained"]
     if vit:
-        out.update(vitmatte(obs.METRICS.counters, got.get("counters_at_open", {})))
+        out.update(in_window(VITMATTE_COUNTERS, obs.METRICS.counters,
+                             got.get("counters_at_open", {})))
     if a.recorder:
         window = (got["w0_ns"], got["w0_ns"] + int(a.seconds * 1e9))
         out.update(readings(spans, got.get("busy", []), got.get("bounds", (math.inf, math.inf)),
